@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels (``tssplat_torch/csrc``).
+
+Each ``.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
+         -shared -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>_<hash>.so
+
+``-fmad=false`` keeps every multiply and add separately rounded, as the
+plain PyTorch versions compute them (a contracted edge function flips
+winner ids at pixels on an edge); fast-math is never used. Libraries build
+at first CUDA use into ``build/kernels/`` at the repository root, all
+missing sources at once in parallel, named by a hash of the sources and
+flags so an edited source is rebuilt. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# kernel library name -> source file in csrc/
+SOURCES = {
+    "vis": "vis.cu",
+    "wsr_grad": "wsr_grad.cu",
+    "aa_fwd": "aa_fwd.cu",
+    "aa_bwd": "aa_bwd.cu",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+
+# C entry points: name -> (library, argument types); all return cudaError_t
+SIGNATURES = {
+    "tss_vis_launch": ("vis", [_VOID] * 4 + [_INT] * 7 + [_VOID] * 5),
+    "tss_wsr_grad_launch": ("wsr_grad", [_VOID] * 2 + [_INT] * 4 + [_VOID] * 2),
+    "tss_aa_fwd_launch": ("aa_fwd", [_VOID] * 4 + [_INT] * 3 + [_VOID] * 2),
+    "tss_aa_bwd_launch": ("aa_bwd", [_VOID] * 5 + [_INT] * 3 + [_VOID] * 2),
+}
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the default
+    toolkit location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def library_path(name: str) -> Path:
+    """Build output of kernel ``name``, keyed by its sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every missing kernel library, one ``nvcc`` per source, all
+    started together. Returns ``{name: ptxas report}`` for what was built
+    (resource usage per kernel, from ``-Xptxas -v``); raises on failure."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    reports, failed = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)         # atomic: a concurrent loader sees all
+        reports[n] = log
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    build_all([name])
+    return ctypes.CDLL(str(library_path(name)))
+
+
+def entry(fn_name: str):
+    """The typed ctypes function ``fn_name`` (building its library first)."""
+    lib_name, argtypes = SIGNATURES[fn_name]
+    fn = getattr(_library(lib_name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
