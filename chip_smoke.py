@@ -13,6 +13,8 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                CUDA events (median of 25 after warm-up); bound_ms is the
                bytes the inputs need (each read once, outputs written once)
                over 3.35 TB/s, or the f32 operations over 67 TFLOP/s
+               (visibility: 30 per pixel test, counting for each
+               (tile, face) pair only the tile's pixels in the face's box)
   4. train   — the geometry-stage train step of the bench scene: one
                TetSphere tet_sphere(0.03, radius=0.25) (2,012 faces),
                8 views at 512x512, ellipsoid alpha targets, AdamUniform with
@@ -22,8 +24,26 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
   5. reference — one step of a small scene (tet_sphere(0.12), 2 views at
                128x128) on the card against the same step on the CPU (the
                plain versions)
-Then one JSON line of per-kernel results, the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.
+  6. capped  — the multi-sphere scene (tools/synthetic.py multisphere_scene:
+               18 spheres, 14,796 faces, 8 views at 512x512, where the
+               capped layout is taken with and without winner rows) at its
+               first step with the validated per-tile capacity k: K2b and
+               K2a against their plain versions (ids and gaux equal, z and
+               g6 to 1e-6) and against K1 on the same scene (bit-equal,
+               n_drop 0); timed as in phase 3, K1 beside them
+  7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
+               configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
+               0.01): K2b, K3, K4, K5 each launched once per step, no drops
+  8. multi-sphere depth + normal training — 3 + 20 steps with Adam (lr 2e-3
+               cosine over 400), normal weight 10: K2a, K3, K4, K5 each once
+               per step
+  9. multi-sphere reference — 2 of the views (capped for both table widths
+               at B = 2): one silhouette step and one depth + normal step at
+               iteration 1001 on the card against the CPU
+The launch counts are zeroed just before each main-path phase (4, 7, 8)
+and read just after it. Then one JSON line of per-kernel results (launches
+of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a from 8), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -66,6 +86,29 @@ def bound_ms(n_bytes, n_ops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def box_tests(table, faces, per_tile, nty, ntx, tile_h, tile_w, res):
+    """Pixel tests a visibility search needs on this data: for each
+    (tile, face) pair, the pixels of the tile whose centres lie in the
+    face's screen box. ``faces`` lists the pairs' face ids tile by tile,
+    ``per_tile`` how many each tile has; faces that cover no pixel
+    (inverse area 0) need none."""
+    H, W = res
+    ntiles = nty * ntx
+    rows = torch.repeat_interleave(
+        torch.arange(per_tile.numel(), device=faces.device), per_tile.long())
+    t = rows % ntiles
+    ty, tx = t // ntx, t % ntx
+    r = table[rows // ntiles, faces.long()]                     # (n,16)
+    px = (r[:, 0:5:2] + 1.0) * 0.5 * W - 0.5
+    py = (r[:, 1:6:2] + 1.0) * 0.5 * H - 0.5
+    nx = (torch.minimum(px.amax(-1).floor(), (tx + 1) * tile_w - 1.0)
+          - torch.maximum(px.amin(-1).ceil(), tx * tile_w * 1.0) + 1)
+    ny = (torch.minimum(py.amax(-1).floor(), (ty + 1) * tile_h - 1.0)
+          - torch.maximum(py.amin(-1).ceil(), ty * tile_h * 1.0) + 1)
+    n = nx.clamp(min=0).double() * ny.clamp(min=0).double()
+    return int(torch.where(r[:, 9] != 0, n, 0.0).sum())
+
+
 def max_err(got, want):
     return max(float((a.double() - b.double()).abs().max())
                for a, b in zip(got, want))
@@ -81,14 +124,20 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this run "
                  "needs a CUDA device")
+    from tssplat_torch.geometry import statics_to
     from tssplat_torch.kernels import build
     from tssplat_torch.ops import raster_kernels as rk
-    from tssplat_torch.ops.binning import bin_faces
+    from tssplat_torch.ops.binning import (CAP_TILE_H, CAP_TILE_W, TILE_H,
+                                           TILE_W, bin_faces,
+                                           bin_faces_capped,
+                                           uses_capped_layout)
     from tssplat_torch.ops.transform import transform_pos
-    from tssplat_torch.optim import adam_uniform, cosine_annealing_lr
-    from tssplat_torch.tools.synthetic import bench_scene
+    from tssplat_torch.optim import (adam, adam_uniform, cosine_annealing_lr,
+                                     cosine_decay_schedule)
+    from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
     from tssplat_torch.train import (init_train_state, loss_and_grad,
-                                     make_train_step, run_steps)
+                                     make_train_step, run_steps,
+                                     validated_tile_k)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -128,6 +177,8 @@ def main():
     def report(name, source, replaces, err, tol, ms, plain_ms, bnd,
                library_ms=None):
         require(err <= tol, f"{name}: max_abs_err {err} > {tol}")
+        require(math.isfinite(ms) and math.isfinite(plain_ms),
+                f"{name}: no time")
         results.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=0,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -147,7 +198,8 @@ def main():
     cnt = bins.tile_count.long()
     k1_bytes = (bins.table.numel() * 4 + bins.faces.numel() * 4
                 + 2 * cnt.numel() * 4 + 48 * P)
-    k1_ops = 30 * 256 * int(cnt.sum())
+    k1_ops = 30 * box_tests(bins.table, bins.faces, cnt, bins.nty, bins.ntx,
+                            TILE_H, TILE_W, res)
     report("visibility", "tssplat_torch/csrc/vis.cu",
            "tssplat_tpu/ops/pallas_raster.py:197", max_err(got, want), 1e-6,
            cuda_ms(lambda: rk.visibility(bins, res)),
@@ -237,7 +289,8 @@ def main():
     require(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     require(n_drop == 0, f"n_drop = {n_drop}")
-    require(all(c > 0 for c in counts.values()), f"a kernel never ran: {counts}")
+    path = ("visibility", "wsr_table_grad", "aa_forward", "aa_backward")
+    require(all(counts[n] > 0 for n in path), f"a kernel never ran: {counts}")
     require(last == losses[-1] and torch.isfinite(state.params).all(),
             "non-finite parameters")
     print(f"[train] {20 / dt:.3f} it/s over 20 steps (8x{RES}^2, {F} faces) "
@@ -262,7 +315,134 @@ def main():
     print(f"[reference] 2x128^2 step at it 1001: loss {l_gpu:.6f} (CPU "
           f"{l_cpu:.6f}), grad max err {gerr:.3g} of max {scale:.3g}",
           flush=True)
+    del geo, batch, state, bins, got, want, ids, z, g6, gaux, ct, ct6, dense6
 
+    # ---- 6. capped visibility at the multi-sphere scene's first step ----------
+    t0 = time.perf_counter()
+    ms_geo, ms_batch = multisphere_scene(dev, 18, N_VIEWS, RES)
+    st = ms_geo.statics
+    Fm = int(st.surface_fid.shape[0])
+    k = validated_tile_k(ms_geo, ms_batch, RES)
+    print(f"[scene] multi-sphere: {ms_geo.num_spheres} spheres, "
+          f"{ms_geo.tetmesh.num_vertices} vertices, {ms_geo.tetmesh.num_tets} "
+          f"tets, {Fm} faces, {N_VIEWS} views at {RES}x{RES}, validated "
+          f"k = {k}; built in {time.perf_counter() - t0:.1f} s", flush=True)
+    require(uses_capped_layout(Fm, 14, N_VIEWS, RES, RES)
+            and uses_capped_layout(Fm, 11, N_VIEWS, RES, RES),
+            "the multi-sphere scene does not take the capped layout")
+    with torch.no_grad():
+        pos = transform_pos(ms_batch["mvp"], ms_geo.tet_v[st.corner_vid])
+    k1_bins = bin_faces(pos, st.edge_nbrs, res)
+    k1_out = rk.visibility(k1_bins, res)
+    k1_ids = rk.visibility(bin_faces(pos, None, res), res, emit_g=False)
+    k1_ms = cuda_ms(lambda: rk.visibility(k1_bins, res))
+    for name, nbrs, fn, plain, k1_ref, out_bytes, replaces in (
+            ("visibility_capped", st.edge_nbrs, rk.visibility_capped,
+             rk.visibility_capped_plain, k1_out, 48, ":113"),
+            ("visibility_capped_ids", None, rk.visibility_capped_ids,
+             rk.visibility_capped_ids_plain, k1_ids, 8, ":53")):
+        cb = bin_faces_capped(pos, nbrs, res, k)
+        require(int(cb.n_drop.sum()) == 0, f"{name}: n_drop {cb.n_drop}")
+        got, want = fn(cb, res), plain(cb, res)
+        torch.cuda.synchronize()
+        require(torch.equal(got[0], want[0]), f"{name}: ids differ from plain")
+        if len(got) == 4:
+            require(torch.equal(got[3], want[3]),
+                    f"{name}: gaux differ from plain")
+        require(all(torch.equal(a, b) for a, b in zip(got, k1_ref)),
+                f"{name}: differs from K1 on the same scene")
+        sc = int(cb.counts.sum())
+        live = torch.arange(cb.cand.shape[1], device=dev)[None] \
+            < cb.counts[:, None]
+        tests = box_tests(cb.table, cb.cand[live], cb.counts, cb.nty, cb.ntx,
+                          CAP_TILE_H, CAP_TILE_W, res)
+        report(name, "tssplat_torch/csrc/vis_capped.cu",
+               f"tssplat_tpu/ops/pallas_raster.py{replaces}",
+               max_err(got, want), 1e-6, cuda_ms(lambda: fn(cb, res)),
+               cuda_ms(lambda: plain(cb, res), reps=3, warm=1),
+               bound_ms(cb.table.numel() * 4 + sc * 4 + cb.counts.numel() * 4
+                        + out_bytes * P, 30 * tests))
+        print(f"[kernel] {name}: {sc} (tile, candidate) pairs in "
+              f"{int((cb.counts > 0).sum())} of {cb.counts.numel()} tiles "
+              f"(max {int(cb.counts.max())}, k {k}); {tests} pixel tests "
+              f"inside the faces' boxes, {CAP_TILE_H * CAP_TILE_W * sc} as "
+              f"the layout walks them; equal to K1 on the same scene; K1 "
+              f"there: {k1_ms:.4f} ms over {int(k1_bins.tile_count.sum())} "
+              f"({TILE_H}x{TILE_W} tile, face) pairs", flush=True)
+    del k1_bins, k1_out, k1_ids, cb, got, want, pos
+
+    # ---- 7/8. multi-sphere training: silhouette, then depth + normal ---------
+    phases = (
+        ("silhouette", "visibility_capped",
+         adam_uniform(cosine_annealing_lr(0.2, 1500), grad_limit=True,
+                      grad_limit_values=(0.01, 0.01),
+                      grad_limit_iters=(1500,)), {}),
+        ("depth+normal", "visibility_capped_ids",
+         adam(cosine_decay_schedule(2e-3, 400, alpha=1e-4 / 2e-3)),
+         dict(fit_depth=True, fit_normal=True, normal_weight=10.0)))
+    for label, vis_name, (init_fn, update_fn), kw in phases:
+        step = make_train_step(st, update_fn, resolution=RES, tile_k=k, **kw)
+        state = init_train_state(ms_geo.tet_v, init_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rk.reset_launch_counts()
+        state, warm_outs = run_steps(step, state, ms_batch, 0, 3)
+        float(warm_outs[-1][0])
+        t0 = time.perf_counter()
+        state, outs = run_steps(step, state, ms_batch, 3, 20)
+        last = float(outs[-1][0])              # host sync inside the window
+        dt = time.perf_counter() - t0
+        counts = rk.launch_counts()
+        losses = [float(o[0]) for o in warm_outs + outs]
+        n_drop = sum(int(o[3]) for o in warm_outs + outs)
+        require(all(math.isfinite(x) for x in losses),
+                f"{label}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+        require(n_drop == 0, f"{label}: n_drop = {n_drop}")
+        path = (vis_name, "wsr_table_grad", "aa_forward", "aa_backward")
+        require(all(counts[n] == 23 for n in path),
+                f"{label}: launches {counts}, expected 23 of each of {path}")
+        require(last == losses[-1] and torch.isfinite(state.params).all(),
+                f"{label}: non-finite parameters")
+        print(f"[train-ms] {label}: {20 / dt:.3f} it/s over 20 steps "
+              f"(8x{RES}^2, {Fm} faces, k {k}) on {smi}; loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; n_drop "
+              f"{n_drop}; launches over 23 steps {counts}", flush=True)
+        for r in results:
+            if r["name"] == vis_name:
+                r["launches"] = counts[vis_name]
+        del state, step, warm_outs, outs
+
+    # ---- 9. multi-sphere reference: the card against the CPU, 2 views -------
+    two = {key: v[:2] for key, v in ms_batch.items()}
+    require(uses_capped_layout(Fm, 14, 2, RES, RES)
+            and uses_capped_layout(Fm, 11, 2, RES, RES),
+            "2 views of the multi-sphere scene are not capped")
+    st_cpu = statics_to(st, "cpu")
+    two_cpu = {key: v.cpu() for key, v in two.items()}
+    for label, kw in (("silhouette", {}),
+                      ("depth+normal", dict(fit_depth=True, fit_normal=True))):
+        t0 = time.perf_counter()
+        o_gpu = loss_and_grad(st, ms_geo.tet_v, two, 1001, RES, tile_k=k, **kw)
+        o_cpu = loss_and_grad(st_cpu, ms_geo.tet_v.cpu(), two_cpu, 1001, RES,
+                              tile_k=k, **kw)
+        l_gpu, l_cpu = float(o_gpu[0]), float(o_cpu[0])
+        g_cpu = o_cpu[4]
+        scale = float(g_cpu.abs().max())
+        gerr = float((o_gpu[4].cpu() - g_cpu).abs().max())
+        require(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu),
+                f"multi-sphere {label} loss {l_gpu} vs CPU {l_cpu}")
+        require(gerr <= 1e-4 * scale,
+                f"multi-sphere {label} grad err {gerr} (scale {scale})")
+        require(int(o_gpu[3]) == 0 and int(o_cpu[3]) == 0,
+                f"multi-sphere {label}: dropped candidates")
+        print(f"[reference-ms] {label}, 2x{RES}^2 step at it 1001: loss "
+              f"{l_gpu:.6f} (CPU {l_cpu:.6f}), grad max err {gerr:.3g} of "
+              f"max {scale:.3g} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+    require(len(results) == len(rk.KERNELS), "a kernel is missing a report")
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

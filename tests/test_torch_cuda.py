@@ -11,7 +11,7 @@ import torch
 from tssplat_torch.mesh.spheres import tet_sphere
 from tssplat_torch.mesh.tetmesh import TetMesh
 from tssplat_torch.ops import raster_kernels as rk
-from tssplat_torch.ops.binning import bin_faces
+from tssplat_torch.ops.binning import bin_faces, bin_faces_capped, capacity
 from tssplat_torch.ops.transform import fibonacci_views, transform_pos
 
 torch.set_num_threads(1)
@@ -75,3 +75,55 @@ def test_antialias_kernels_match_plain(scene):
                                rk.aa_backward_plain(ids, z, g6, gaux, ct),
                                atol=1e-5, rtol=0)
     assert rk.launch_counts()["aa_backward"] > 0
+
+
+@pytest.fixture(scope="module", params=[(128, 128), (64, 384)],
+                ids=["128x128", "64x384"])
+def capped_scene(request):
+    """The same sphere on the capped layout's 8x128 tiles; 64x384 is
+    aligned but its width is no power of two (where a reciprocal in place
+    of a division would show)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    mesh = TetMesh(*tet_sphere(0.12, radius=0.3))
+    corners = torch.tensor(mesh.vtx[mesh.surface_vid[mesh.surface_fid]
+                                    .reshape(-1)], dtype=torch.float32,
+                           device=dev)
+    mvp, _, _ = fibonacci_views(2)
+    pos = transform_pos(torch.tensor(mvp, dtype=torch.float32, device=dev),
+                        corners)
+    nbrs = torch.tensor(mesh.surface_edge_neighbors(), device=dev)
+    return dict(pos=pos, nbrs=nbrs, res=request.param)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [None, 8], ids=["default_k", "k8_drops"])
+def test_capped_visibility_kernels_match_plain(capped_scene, k):
+    """K2b and K2a against their plain versions, bit for bit (built without
+    FMA contraction), with the default capacity (no drops: both equal K1)
+    and with k = 8, where tiles overflow and drop faces."""
+    pos, nbrs, res = capped_scene["pos"], capped_scene["nbrs"], \
+        capped_scene["res"]
+    F = int(nbrs.shape[0])
+    kk = capacity(k, F, res)
+    k1 = rk.visibility_plain(bin_faces(pos, nbrs, res), res)
+    for rows in (nbrs, None):
+        bins = bin_faces_capped(pos, rows, res, kk)
+        fn, plain = (rk.visibility_capped, rk.visibility_capped_plain) \
+            if rows is not None else \
+            (rk.visibility_capped_ids, rk.visibility_capped_ids_plain)
+        got, want = fn(bins, res), plain(bins, res)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+        assert int((got[0] > 0).sum()) > 100
+        if k is None:
+            assert int(bins.n_drop.sum()) == 0
+            for a, b in zip(got, k1):
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+        else:
+            assert int(bins.n_drop.sum()) > 0
+    counts = rk.launch_counts()
+    assert counts["visibility_capped"] > 0
+    assert counts["visibility_capped_ids"] > 0

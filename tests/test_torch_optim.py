@@ -1,6 +1,7 @@
-"""The port's AdamUniform (tssplat_torch/optim/adam_uniform.py) against the
-JAX package's, step by step from the same seeded gradients, across an
-advance of the grad-cap pointer."""
+"""The port's optimizers against the JAX package's, step by step from the
+same seeded gradients: AdamUniform (tssplat_torch/optim/adam_uniform.py)
+across an advance of the grad-cap pointer, and Adam with cosine decay
+(tssplat_torch/optim/adam.py) against optax."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,8 @@ from tssplat_tpu.optim import adam_uniform as jax_adam
 from tssplat_tpu.optim import cosine_annealing_lr as jax_cos
 
 from tssplat_torch import convert
-from tssplat_torch.optim import adam_uniform, cosine_annealing_lr
+from tssplat_torch.optim import (adam, adam_uniform, apply_updates,
+                                 cosine_annealing_lr, cosine_decay_schedule)
 
 torch.set_num_threads(1)
 
@@ -53,3 +55,41 @@ def test_cosine_lr_matches_jax():
         np.testing.assert_allclose(
             float(s_t(torch.tensor(c, dtype=torch.int32))),
             float(s_j(jnp.int32(c))), rtol=1e-6)
+
+
+def test_adam_matches_optax():
+    """(f) optimizer.type adam: ten updates of the port's Adam against
+    optax.adam over optax.cosine_decay_schedule (lr 2e-3 over 400 steps,
+    alpha = eta_min / lr, the JAX trainer's setting), from the same seeded
+    gradients; the state carried across by convert.optax_adam_state.
+    Parameters to rtol 1e-6."""
+    import optax
+    sched = (2e-3, 400, 1e-4 / 2e-3)
+    opt = optax.adam(optax.cosine_decay_schedule(*sched))
+    init_t, upd_t = adam(cosine_decay_schedule(*sched))
+    rng = np.random.default_rng(0)
+    p = rng.normal(size=(50, 3)).astype(np.float32)
+    p_j, p_t = jnp.asarray(p), torch.from_numpy(p.copy())
+    st_j, st_t = opt.init(p_j), init_t(p_t)
+    for _ in range(10):
+        g = (rng.normal(size=p.shape) * 10.0 ** rng.uniform(-4, 1)
+             ).astype(np.float32)
+        u_j, st_j = opt.update(jnp.asarray(g), st_j, p_j)
+        p_j = optax.apply_updates(p_j, u_j)
+        u_t, st_t = upd_t(torch.from_numpy(g), st_t)
+        p_t = apply_updates(p_t, u_t)
+        np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=1e-6)
+        ref = convert.optax_adam_state(st_j, "cpu")
+        assert int(st_t.count) == int(ref.count)
+        np.testing.assert_allclose(st_t.nu.numpy(), ref.nu.numpy(), rtol=1e-6)
+    assert int(st_t.count) == 10
+
+
+@pytest.mark.parametrize("count", [0, 1, 7, 200, 399, 400, 4000])
+def test_cosine_decay_matches_optax(count):
+    import optax
+    s_j = optax.cosine_decay_schedule(2e-3, 400, 0.05)
+    s_t = cosine_decay_schedule(2e-3, 400, 0.05)
+    np.testing.assert_allclose(
+        float(s_t(torch.tensor(count, dtype=torch.int32))),
+        float(s_j(jnp.int32(count))), rtol=1e-6)

@@ -17,8 +17,10 @@ from tssplat_tpu.ops.transform import fibonacci_views as jax_views
 from tssplat_torch.mesh.spheres import tet_sphere
 from tssplat_torch.mesh.tetmesh import TetMesh
 from tssplat_torch.ops.transform import fibonacci_views
-from tssplat_torch.geometry.tet_geometry import TetMeshGeometry
-from tssplat_torch.tools.synthetic import render_alpha_of_mesh
+from tssplat_torch.geometry import (TetMeshGeometry,
+                                    TetMeshMultiSphereGeometry)
+from tssplat_torch.tools.synthetic import (render_alpha_of_mesh,
+                                           render_views_of_mesh)
 
 torch.set_num_threads(1)
 
@@ -55,6 +57,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     sv, sf = icosphere(1)
     with pytest.raises(RuntimeError, match="CUDA"):
         render_alpha_of_mesh(sv, sf, mvp, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_views_of_mesh(sv, sf, mvp, np.zeros((1, 3)), 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TetMeshMultiSphereGeometry(dict(key_points_file_path="kp.json"))
     geo = TetMeshGeometry(tetmesh=TetMesh(v, t), device="cpu")
     assert geo.tet_v.device.type == "cpu"
 
@@ -101,3 +107,23 @@ def test_synthetic_alpha_matches_jax():
     # coverage may flip only at a pixel whose centre lies on an edge
     assert (diff > 1e-5).sum() <= 2
     np.testing.assert_allclose(np.sort(diff.ravel())[:-2], 0.0, atol=1e-5)
+
+
+def test_synthetic_depth_normal_match_jax():
+    """The port's depth and normal targets (K1 without rows, the shading
+    of the winners, interpolated vertex normals) equal those of the JAX
+    package's render_views_of_mesh: depth to 1e-5 (the clip transforms
+    differ in the last bit), normals to 1e-4, except at <= 2 pixels whose
+    centre lies on an edge."""
+    from tssplat_tpu.tools.synthetic import render_views_of_mesh as jax_rv
+    sv, sf = icosphere(2)
+    sv = sv * np.asarray([0.30, 0.24, 0.18])
+    mvp, _, campos = fibonacci_views(2)
+    _, d_j, n_j = jax_rv(sv, sf, mvp, campos, 128)
+    alpha, d_t, n_t = render_views_of_mesh(sv, sf, mvp, campos, 128,
+                                           device="cpu")
+    assert alpha.shape == (2, 128, 128, 1)
+    assert (d_j > 0).sum() > 500
+    dd = np.abs(d_t.numpy() - d_j)
+    dn = np.abs(n_t.numpy() - n_j).max(-1)
+    assert ((dd > 1e-5) | (dn > 1e-4)).sum() <= 2

@@ -9,6 +9,7 @@ thing from the same inputs:
                      corner_vid, EnergyOps and the scalar coefficients)
   tet_v              (N,3) f32 vertex positions
   adam_state         AdamUniformState (count, g1, g2, limit_ptr, cc)
+  optax_adam_state   AdamState (count, mu, nu) of ``optax.adam``
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .geometry.tet_geometry import GeometryStatics
 from .ops.energy import EnergyOps, energy_ops_from_arrays
+from .optim.adam import AdamState
 from .optim.adam_uniform import AdamUniformState
 
 
@@ -70,3 +72,12 @@ def adam_state(state, device: DeviceLike = None) -> AdamUniformState:
                             g1=_f32(state.g1, dev), g2=_f32(state.g2, dev),
                             limit_ptr=_i32(state.limit_ptr, dev),
                             cc=_i32(state.cc, dev))
+
+
+def optax_adam_state(state, device: DeviceLike = None) -> AdamState:
+    """The state of ``optax.adam(schedule)`` on one array: (ScaleByAdamState
+    (count, mu, nu), ScaleByScheduleState(count)); the two counts agree."""
+    dev = resolve_device(device)
+    adam_st = state[0]
+    return AdamState(count=_i32(adam_st.count, dev), mu=_f32(adam_st.mu, dev),
+                     nu=_f32(adam_st.nu, dev))

@@ -2,12 +2,10 @@
 //
 // Replaces tssplat_tpu/ops/pallas_raster.py _vis_kernel_flat (:197, the
 // pl.pallas_call at :838, emit_g mode). Per pixel: walk the binned faces of
-// its screen tile; for each, three inside-positive edge functions scaled by
-// inv_area and z interpolated from z0..z2. A face covers the pixel when all
-// edges are >= 0, inv_area != 0 and z in [-1, 1]; the smallest z wins and an
-// exact tie goes to the smaller id. Outputs id+1 and z per pixel and, with
-// EMIT_G, the winner's rows: g6 = (ax,bx,cx,ay,by,cy), gaux = (nbr0,nbr1,
-// nbr2,sign(inv_area)), channel-major. Every output is 0 on background.
+// its screen tile and keep the nearest covering one (tss::depth_test,
+// vis_common.cuh). Outputs id+1 and z per pixel and, with EMIT_G, the
+// winner's rows: g6 = (ax,bx,cx,ay,by,cy), gaux = (nbr0,nbr1,nbr2,
+// sign(inv_area)), channel-major. Every output is 0 on background.
 //
 // Bound on the H100: the 12 output channels written once (48 B/px) — the
 // per-candidate arithmetic (~30 flops x candidates x 256 px per tile) is far
@@ -17,14 +15,8 @@
 // by all threads as a broadcast), the running best (z, id) stays in
 // registers, and the winner's row is fetched once at the end instead of
 // carrying 10 channels through the loop. Coalesced channel-major stores.
-//
-// Parity: pixel centres and edge functions are evaluated in exactly the
-// order of pallas_raster.py:229-268; the library is built with -fmad=false
-// so no multiply-add is contracted (a contracted edge function flips ids at
-// pixels lying on an edge against the plain version).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "vis_common.cuh"
 
 namespace {
 
@@ -48,8 +40,8 @@ __global__ void __launch_bounds__(kThreads) vis_kernel(
   const int tid = threadIdx.y * kTile + threadIdx.x;
   const int col = (t % ntx) * kTile + threadIdx.x;
   const int row = (t / ntx) * kTile + threadIdx.y;
-  const float px = ((float)col + 0.5f) / (float)W * 2.0f - 1.0f;
-  const float py = ((float)row + 0.5f) / (float)H * 2.0f - 1.0f;
+  const float px = tss::ndc_center(col, W);
+  const float py = tss::ndc_center(row, H);
 
   const int slot = b * ntiles + t;
   const int start = tile_start[slot];
@@ -70,53 +62,19 @@ __global__ void __launch_bounds__(kThreads) vis_kernel(
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const float4 r0 = s_row[i][0];
-      const float4 r1 = s_row[i][1];
-      const float4 r2 = s_row[i][2];
-      const float ax = r0.x, ay = r0.y, bx = r0.z, by = r0.w;
-      const float cx = r1.x, cy = r1.y, z0 = r1.z, z1 = r1.w;
-      const float z2 = r2.x, inv_area = r2.y;
-      const float e0 = ((cx - bx) * (py - by) - (cy - by) * (px - bx)) * inv_area;
-      const float e1 = ((ax - cx) * (py - cy) - (ay - cy) * (px - cx)) * inv_area;
-      const float e2 = ((bx - ax) * (py - ay) - (by - ay) * (px - ax)) * inv_area;
-      const float z = e0 * z0 + e1 * z1 + e2 * z2;
-      const bool cov = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f &&
-                       inv_area != 0.0f && z >= -1.0f && z <= 1.0f;
-      const float zc = cov ? z : CUDART_INF_F;
-      const int id1 = s_id[i];
-      if (zc < best_z || (zc == best_z && cov && id1 < best_id)) {
-        best_z = zc;
-        best_id = id1;
-      }
+      tss::depth_test(s_row[i][0], s_row[i][1], s_row[i][2], s_id[i], px, py,
+                      best_z, best_id);
     }
   }
   if (row >= H || col >= W) return;
 
   const size_t HW = (size_t)H * W;
   const size_t q = (size_t)row * W + col;
-  const bool fg = best_id > 0;
   ids_out[(size_t)b * HW + q] = best_id;
-  z_out[(size_t)b * HW + q] = fg ? best_z : 0.0f;
+  z_out[(size_t)b * HW + q] = best_id > 0 ? best_z : 0.0f;
   if (EMIT_G) {
-    float4 r0 = make_float4(0.f, 0.f, 0.f, 0.f), r1 = r0, r2 = r0, r3 = r0;
-    if (fg) {
-      const float4* r = tbl + (size_t)(best_id - 1) * 4;
-      r0 = r[0]; r1 = r[1]; r2 = r[2]; r3 = r[3];
-    }
-    const float inv_area = r2.y;
-    const float sgn = inv_area > 0.0f ? 1.0f : (inv_area < 0.0f ? -1.0f : 0.0f);
-    float* g = g6 + (size_t)b * 6 * HW + q;
-    g[0 * HW] = r0.x;    // ax
-    g[1 * HW] = r0.z;    // bx
-    g[2 * HW] = r1.x;    // cx
-    g[3 * HW] = r0.y;    // ay
-    g[4 * HW] = r0.w;    // by
-    g[5 * HW] = r1.y;    // cy
-    float* a = gaux + (size_t)b * 4 * HW + q;
-    a[0 * HW] = r2.z;    // nbr0
-    a[1 * HW] = r2.w;    // nbr1
-    a[2 * HW] = r3.x;    // nbr2
-    a[3 * HW] = sgn;
+    tss::emit_winner_rows(tbl, best_id, HW, g6 + (size_t)b * 6 * HW + q,
+                          gaux + (size_t)b * 4 * HW + q);
   }
 }
 

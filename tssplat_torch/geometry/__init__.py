@@ -1,5 +1,8 @@
 from .tet_geometry import (GeometryStatics, GeometryForwardData,
-                           TetMeshGeometry, geometry_forward)
+                           TetMeshGeometry, compute_vertex_normals,
+                           geometry_forward, statics_to)
+from .multisphere import TetMeshMultiSphereGeometry, target_edge_length
 
 __all__ = ["GeometryStatics", "GeometryForwardData", "TetMeshGeometry",
-           "geometry_forward"]
+           "TetMeshMultiSphereGeometry", "compute_vertex_normals",
+           "geometry_forward", "statics_to", "target_edge_length"]

@@ -1,5 +1,5 @@
 """Optimizable tet-mesh geometry (port of ``tssplat_tpu/geometry/
-tet_geometry.py``, single-sphere path).
+tet_geometry.py``; the multi-sphere class is in ``multisphere.py``).
 
 The learnable state is a bare ``tet_v`` (N,3) f32 tensor; ``geometry_forward``
 is a function of (tet_v, statics, it). All topology (surface gather ids,
@@ -57,6 +57,38 @@ def geometry_forward(tet_v: torch.Tensor, geom: GeometryStatics,
                                energy=e)
 
 
+def compute_vertex_normals(v_pos: torch.Tensor,
+                           t_pos_idx: torch.Tensor) -> torch.Tensor:
+    """Area-weighted vertex normals (``compute_vertex_normals``,
+    tet_geometry.py:80): face normals summed into their three vertices,
+    +z where the sum is degenerate, then normalized."""
+    i0, i1, i2 = t_pos_idx[:, 0], t_pos_idx[:, 1], t_pos_idx[:, 2]
+    v0, v1, v2 = v_pos[i0], v_pos[i1], v_pos[i2]
+    fn = torch.linalg.cross(v1 - v0, v2 - v0)
+    z = torch.zeros_like(v_pos)
+    v_nrm = (z.index_add(0, i0, fn) + z.index_add(0, i1, fn)
+             + z.index_add(0, i2, fn))
+    sq = torch.sum(v_nrm * v_nrm, dim=-1, keepdim=True)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
+                      device=v_pos.device)
+    v_nrm = torch.where(sq > 1e-20, v_nrm, up)
+    return v_nrm / torch.linalg.norm(v_nrm, dim=-1, keepdim=True)
+
+
+def statics_to(statics: GeometryStatics, device: DeviceLike
+               ) -> GeometryStatics:
+    """The same statics with every tensor on ``device``."""
+    dev = resolve_device(device)
+
+    def move(nt):
+        return nt._replace(**{k: v.to(dev) for k, v in nt._asdict().items()
+                              if isinstance(v, torch.Tensor)})
+
+    out = move(statics)
+    return out if out.energy is None else out._replace(
+        energy=move(out.energy))
+
+
 @dataclass
 class SmoothBarrierParam:
     smooth_eng_coeff: float = 2e-4
@@ -89,6 +121,14 @@ class TetMeshGeometry:
                 path = os.path.join(path, "final.veg")
             tetmesh = TetMesh.from_veg(path)
         self.tetmesh = tetmesh
+        self.setup()
+
+    def setup(self, smooth_scale: float = 1.0) -> None:
+        """Build the statics and tet_v of ``self.tetmesh`` on the device,
+        with the smoothness coefficient times ``smooth_scale``
+        (1/num_spheres for the multi-sphere geometry, tet_geometry.py:
+        199-214)."""
+        tetmesh = self.tetmesh
         sb = parse_structured(SmoothBarrierParam,
                               self.cfg.smooth_barrier_param or {})
         dev = self.device
@@ -107,7 +147,7 @@ class TetMeshGeometry:
             corner_vid=i64(tetmesh.surface_vid[tetmesh.surface_fid]
                            .reshape(-1)),
             energy=energy,
-            smooth_coeff=float(sb.smooth_eng_coeff),
+            smooth_coeff=float(sb.smooth_eng_coeff) * smooth_scale,
             barrier_coeff=float(sb.barrier_coeff),
             increase_order_iter=int(sb.increase_order_iter))
         self.tet_v = torch.as_tensor(tetmesh.vtx, dtype=torch.float32,
@@ -126,6 +166,9 @@ class TetMeshGeometry:
         self.tet_v = torch.as_tensor(tet_v, dtype=torch.float32,
                                      device=self.device)
 
-    def export(self, path: str, filename: str) -> None:
-        self.tetmesh.update_vtx_pos(self.tet_v.detach().cpu().double().numpy())
+    def export(self, path: str, filename: str) -> np.ndarray:
+        """Save the tet mesh at the current tet_v; returns tet_v as f64."""
+        tet_v = self.tet_v.detach().cpu().double().numpy()
+        self.tetmesh.update_vtx_pos(tet_v)
         self.tetmesh.save(path, filename)
+        return tet_v

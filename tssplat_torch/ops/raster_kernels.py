@@ -1,10 +1,15 @@
 """The rasterizer's hand-written CUDA kernels, each beside its plain
 PyTorch version (counterpart of ``tssplat_tpu/ops/pallas_raster.py``).
 
-  K1 ``visibility``      csrc/vis.cu       <- _vis_kernel_flat (emit_g)
-  K3 ``wsr_table_grad``  csrc/wsr_grad.cu  <- _wsr_grad_kernel
-  K4 ``aa_forward``      csrc/aa_fwd.cu    <- _aa_halo_fwd_kernel + border pass
-  K5 ``aa_backward``     csrc/aa_bwd.cu    <- _aa_halo_bwd_kernel + border pass
+  K1  ``visibility``             csrc/vis.cu         <- _vis_kernel_flat
+  K2a ``visibility_capped_ids``  csrc/vis_capped.cu  <- _vis_kernel
+  K2b ``visibility_capped``      csrc/vis_capped.cu  <- _vis_kernel_g
+  K3  ``wsr_table_grad``         csrc/wsr_grad.cu    <- _wsr_grad_kernel
+  K4  ``aa_forward``             csrc/aa_fwd.cu      <- _aa_halo_fwd_kernel
+  K5  ``aa_backward``            csrc/aa_bwd.cu      <- _aa_halo_bwd_kernel
+
+(K4 and K5 also take the place of the XLA border pass beside their TPU
+kernels.)
 
 Each wrapper takes the plain version for tensors on the CPU, and launches
 its kernel for CUDA tensors (or raises: there is no fallback). It checks
@@ -23,7 +28,8 @@ from typing import Tuple
 import torch
 
 from ..kernels import build
-from .binning import FaceBins, TILE_H, TILE_W
+from .binning import (CAP_TILE_H, CAP_TILE_W, CappedBins, FaceBins, TILE_H,
+                      TILE_W)
 from .screen import ndc_center, pixel_centers
 
 _INF = float("inf")
@@ -62,16 +68,18 @@ def _ptr(t: torch.Tensor) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1 — visibility with winner rows
+# K1 — visibility over the uncapped lists, with or without winner rows
 # ---------------------------------------------------------------------------
 
-def visibility(bins: FaceBins, resolution: Tuple[int, int]):
+def visibility(bins: FaceBins, resolution: Tuple[int, int],
+               emit_g: bool = True):
     """Winner per pixel over the binned faces: (ids+1 (B,H,W) int32,
     z (B,H,W) f32, g6 (B,6,H,W) f32 = (ax,bx,cx,ay,by,cy), gaux (B,4,H,W)
-    f32 = (nbr0,nbr1,nbr2,sign)); all zero on background."""
+    f32 = (nbr0,nbr1,nbr2,sign)); all zero on background. With ``emit_g``
+    off, (ids, z) only."""
     table = bins.table
     if not _on_cuda(table, "visibility"):
-        return visibility_plain(bins, resolution)
+        return visibility_plain(bins, resolution, emit_g)
     H, W = resolution
     B, F, _ = table.shape
     dev = table.device
@@ -86,74 +94,176 @@ def visibility(bins: FaceBins, resolution: Tuple[int, int]):
         torch.zeros(1, dtype=torch.int32, device=dev)
     ids = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
-    gaux = torch.empty((B, 4, H, W), dtype=torch.float32, device=dev)
+    g6 = gaux = None
+    if emit_g:
+        g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
+        gaux = torch.empty((B, 4, H, W), dtype=torch.float32, device=dev)
     _launch("tss_vis_launch", _ptr(table), _ptr(bins.tile_start),
             _ptr(bins.tile_count), _ptr(faces), B, F, H, W, bins.nty,
-            bins.ntx, 1, _ptr(ids), _ptr(z), _ptr(g6), _ptr(gaux))
+            bins.ntx, int(emit_g), _ptr(ids), _ptr(z),
+            _ptr(g6) if emit_g else None, _ptr(gaux) if emit_g else None)
     visibility.launches += 1
-    return ids, z, g6, gaux
+    return (ids, z, g6, gaux) if emit_g else (ids, z)
 
 
-def visibility_plain(bins: FaceBins, resolution: Tuple[int, int]):
+def visibility_plain(bins: FaceBins, resolution: Tuple[int, int],
+                     emit_g: bool = True):
     """Plain version of K1: the same per-tile candidate walk, one candidate
     slot of every tile at a time, with the kernel's arithmetic order."""
+    start = bins.tile_start.long()
+    ids, z = _walk_tiles(
+        bins.table, lambda j, tl: bins.faces[start[tl] + j].long(),
+        bins.tile_count, bins.nty, bins.ntx, TILE_H, TILE_W, resolution)
+    return (ids, z, *_winner_rows(bins.table, ids)) if emit_g else (ids, z)
+
+
+def _walk_tiles(table, face_at, count, nty, ntx, tile_h, tile_w,
+                resolution):
+    """The kernels' per-tile search, vectorized over (tile, pixel):
+    candidate slot j of every tile whose count exceeds j at a time
+    (``face_at(j, tl)`` gives the face ids at slot j of the flat tiles
+    tl = view * ntiles + tile), in the kernels' arithmetic order. The tiles
+    are sorted by count once (one host read), so slot j walks a prefix of
+    them and the loop ends at the largest real count, never at a capacity
+    above it. Returns (ids+1 (B,H,W) int32, z (B,H,W) f32, 0 on
+    background)."""
     H, W = resolution
-    table = bins.table
     B, F, _ = table.shape
     dev = table.device
-    nty, ntx = bins.nty, bins.ntx
     nt = nty * ntx
-    # per-tile pixel centres (nt, TILE_H*TILE_W), row-major inside the tile
-    ly = torch.arange(TILE_H, device=dev).repeat_interleave(TILE_W)
-    lx = torch.arange(TILE_W, device=dev).repeat(TILE_H)
+    # per-tile pixel centres (nt, tile_h*tile_w), row-major inside the tile
+    ly = torch.arange(tile_h, device=dev).repeat_interleave(tile_w)
+    lx = torch.arange(tile_w, device=dev).repeat(tile_h)
     tiles = torch.arange(nt, device=dev)
-    row = (tiles // ntx)[:, None] * TILE_H + ly[None]
-    col = (tiles % ntx)[:, None] * TILE_W + lx[None]
-    px = ndc_center(col.to(torch.float32), W)
-    py = ndc_center(row.to(torch.float32), H)
+    row = (tiles // ntx)[:, None] * tile_h + ly[None]
+    col = (tiles % ntx)[:, None] * tile_w + lx[None]
 
-    start = bins.tile_start.view(B, nt).long()
-    count = bins.tile_count.view(B, nt).long()
-    best_z = torch.full((B, nt, TILE_H * TILE_W), _INF, device=dev)
-    best_id = torch.zeros((B, nt, TILE_H * TILE_W), dtype=torch.int32,
+    count = count.reshape(-1).long()
+    order = torch.argsort(count, descending=True, stable=True)
+    counts_desc = count[order].tolist()                  # host read
+    px = ndc_center(col.to(torch.float32), W)[order % nt]   # sorted tiles
+    py = ndc_center(row.to(torch.float32), H)[order % nt]
+    best_z = torch.full((B * nt, tile_h * tile_w), _INF, device=dev)
+    best_id = torch.zeros((B * nt, tile_h * tile_w), dtype=torch.int32,
                           device=dev)
-    n_faces = bins.faces.numel()
-    bidx = torch.arange(B, device=dev)[:, None]
-    for j in range(int(count.max()) if count.numel() else 0):
-        live = (j < count)[..., None]
-        f = bins.faces[torch.clamp(start + j, max=n_faces - 1)].long()
-        r = table[bidx, f][..., None, :]                 # (B,nt,1,16)
+    rows = table.reshape(B * F, -1)
+    n = len(counts_desc)
+    for j in range(counts_desc[0] if n else 0):
+        while counts_desc[n - 1] <= j:
+            n -= 1
+        tl = order[:n]
+        f = face_at(j, tl)
+        r = rows[(tl // nt) * F + f][:, None, :]         # (n,1,16)
         ax, ay, bx, by = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
         cx, cy, z0, z1 = r[..., 4], r[..., 5], r[..., 6], r[..., 7]
         z2, inv_area = r[..., 8], r[..., 9]
-        e0 = ((cx - bx) * (py - by) - (cy - by) * (px - bx)) * inv_area
-        e1 = ((ax - cx) * (py - cy) - (ay - cy) * (px - cx)) * inv_area
-        e2 = ((bx - ax) * (py - ay) - (by - ay) * (px - ax)) * inv_area
+        pxs, pys = px[:n], py[:n]
+        e0 = ((cx - bx) * (pys - by) - (cy - by) * (pxs - bx)) * inv_area
+        e1 = ((ax - cx) * (pys - cy) - (ay - cy) * (pxs - cx)) * inv_area
+        e2 = ((bx - ax) * (pys - ay) - (by - ay) * (pxs - ax)) * inv_area
         z = e0 * z0 + e1 * z1 + e2 * z2
         cov = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (inv_area != 0) \
             & (z >= -1.0) & (z <= 1.0)
         zc = torch.where(cov, z, torch.full_like(z, _INF))
-        tid = (f + 1).to(torch.int32)[..., None]
-        take = ((zc < best_z) | ((zc == best_z) & cov & (tid < best_id))) \
-            & live
-        best_z = torch.where(take, zc, best_z)
-        best_id = torch.where(take, tid, best_id)
+        tid = (f + 1).to(torch.int32)[:, None]
+        bz, bi = best_z[:n], best_id[:n]
+        take = (zc < bz) | ((zc == bz) & cov & (tid < bi))
+        best_z[:n] = torch.where(take, zc, bz)
+        best_id[:n] = torch.where(take, tid, bi)
 
-    def to_image(x):                                     # (B,nt,th*tw)
-        x = x.view(B, nty, ntx, TILE_H, TILE_W).permute(0, 1, 3, 2, 4)
-        return x.reshape(B, nty * TILE_H, ntx * TILE_W)[:, :H, :W]
+    def to_image(x):                                     # sorted tiles
+        x = torch.empty_like(x).index_copy_(0, order, x)
+        x = x.view(B, nty, ntx, tile_h, tile_w).permute(0, 1, 3, 2, 4)
+        return x.reshape(B, nty * tile_h, ntx * tile_w)[:, :H, :W]
 
     ids = to_image(best_id).contiguous()
+    z = torch.where(ids > 0, to_image(best_z), torch.zeros((), device=dev))
+    return ids, z.contiguous()
+
+
+def _winner_rows(table, ids):
+    """The winner's rows gathered from the (B,F,16) face table: g6
+    (B,6,H,W) = (ax,bx,cx,ay,by,cy), gaux (B,4,H,W) = (nbr0,nbr1,nbr2,
+    sign(inv_area)); zero on background."""
+    B = table.shape[0]
+    bidx = torch.arange(B, device=table.device)[:, None, None]
     fg = ids > 0
-    z = torch.where(fg, to_image(best_z), torch.zeros((), device=dev))
-    rows = table[bidx[..., None], torch.clamp(ids.long() - 1, min=0)]
+    rows = table[bidx, torch.clamp(ids.long() - 1, min=0)]
     rows = rows * fg[..., None]                          # (B,H,W,16)
     g6 = rows[..., [0, 2, 4, 1, 3, 5]].permute(0, 3, 1, 2).contiguous()
     sgn = torch.sign(rows[..., 9:10])
     gaux = torch.cat([rows[..., 10:13], sgn], -1).permute(0, 3, 1, 2) \
         .contiguous()
-    return ids, z.contiguous(), g6, gaux
+    return g6, gaux
+
+
+# ---------------------------------------------------------------------------
+# K2a / K2b — visibility over the capped candidate matrix
+# ---------------------------------------------------------------------------
+
+def _check_capped(bins: CappedBins, resolution: Tuple[int, int]):
+    H, W = resolution
+    table = bins.table
+    B, F, _ = table.shape
+    dev = table.device
+    if H % CAP_TILE_H or W % CAP_TILE_W:
+        raise ValueError(f"capped visibility needs H % {CAP_TILE_H} == 0 and"
+                         f" W % {CAP_TILE_W} == 0, got {resolution}")
+    if bins.nty != H // CAP_TILE_H or bins.ntx != W // CAP_TILE_W:
+        raise ValueError("capped visibility: bins were made for another "
+                         "resolution")
+    nt = B * bins.nty * bins.ntx
+    _check(table, "table", torch.float32, (B, F, 16))
+    _check(bins.counts, "counts", torch.int32, (nt,), dev)
+    _check(bins.cand, "cand", torch.int32, (nt, bins.cand.shape[1]), dev)
+    return B, F, H, W, bins.cand.shape[1]
+
+
+def visibility_capped(bins: CappedBins, resolution: Tuple[int, int]):
+    """K2b: the outputs of K1 — (ids+1, z, g6, gaux) — over the capped
+    candidate matrix (ascending ids, counts <= k, as bin_faces_capped
+    builds it)."""
+    if not _on_cuda(bins.table, "visibility_capped"):
+        return visibility_capped_plain(bins, resolution)
+    B, F, H, W, k = _check_capped(bins, resolution)
+    dev = bins.table.device
+    ids = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
+    gaux = torch.empty((B, 4, H, W), dtype=torch.float32, device=dev)
+    _launch("tss_vis_capped_g_launch", _ptr(bins.table), _ptr(bins.counts),
+            _ptr(bins.cand), B, F, H, W, k, _ptr(ids), _ptr(z), _ptr(g6),
+            _ptr(gaux))
+    visibility_capped.launches += 1
+    return ids, z, g6, gaux
+
+
+def visibility_capped_ids(bins: CappedBins, resolution: Tuple[int, int]):
+    """K2a: (ids+1, z) over the capped candidate matrix."""
+    if not _on_cuda(bins.table, "visibility_capped_ids"):
+        return visibility_capped_ids_plain(bins, resolution)
+    B, F, H, W, k = _check_capped(bins, resolution)
+    dev = bins.table.device
+    ids = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    _launch("tss_vis_capped_launch", _ptr(bins.table), _ptr(bins.counts),
+            _ptr(bins.cand), B, F, H, W, k, _ptr(ids), _ptr(z))
+    visibility_capped_ids.launches += 1
+    return ids, z
+
+
+def visibility_capped_ids_plain(bins: CappedBins,
+                                resolution: Tuple[int, int]):
+    """Plain version of K2a: K1's walk over the candidate matrix's rows."""
+    return _walk_tiles(bins.table, lambda j, tl: bins.cand[tl, j].long(),
+                       bins.counts, bins.nty, bins.ntx, CAP_TILE_H,
+                       CAP_TILE_W, resolution)
+
+
+def visibility_capped_plain(bins: CappedBins, resolution: Tuple[int, int]):
+    """Plain version of K2b: K2a's walk, then the winner's rows."""
+    ids, z = visibility_capped_ids_plain(bins, resolution)
+    return (ids, z, *_winner_rows(bins.table, ids))
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +499,8 @@ def _check_aa(ids, z, g6, gaux):
     _check(gaux, "gaux", torch.float32, (B, 4, H, W), dev)
 
 
-KERNELS = (visibility, wsr_table_grad, aa_forward, aa_backward)
+KERNELS = (visibility, visibility_capped_ids, visibility_capped,
+           wsr_table_grad, aa_forward, aa_backward)
 
 
 def reset_launch_counts() -> None:

@@ -1,13 +1,20 @@
 """Where a geometry-stage train step spends its time, on the card.
 
     python -m tssplat_torch.tools.profile_step [--views 8] [--res 512]
+        [--scene bench|multisphere] [--depth-normal] [--layout rule|flat]
 
-On the benchmark scene (tools/synthetic.py bench_scene) it prints, as one
-JSON line each:
+On the benchmark scene (tools/synthetic.py bench_scene, AdamUniform) or
+the 18-sphere scene (multisphere_scene with the validated per-tile
+capacity; AdamUniform, or Adam lr 2e-3 with --depth-normal, which adds the
+depth and normal losses) it prints, as one JSON line each (``--layout
+flat`` keeps K1's uncapped lists where the rule would cap, to time both
+visibility paths in the same step on the same scene):
   - "layer": each layer of the step run alone, median device-synchronised
-    wall time of 10 calls (energy fwd+bwd, clip transform, binning, K1,
-    winner rows + K4 forward, loss backward = K5 + K3 + table autograd,
-    AdamUniform update) and the whole step;
+    wall time of 10 calls (energy fwd+bwd, clip transform, binning, the
+    visibility kernel of the path (K1, K2a or K2b), the rest of the
+    render's forward and backward (silhouette: winner rows + K4 + loss
+    backward = K5 + K3 + table autograd; depth + normal: the whole loss and
+    gradient), the optimizer update) and the whole step;
   - "profile": torch.profiler over 5 steps — the step's wall time, the
     device's busy time (sum of kernel times on the one stream) and idle
     share, and the top kernels by device time.
@@ -23,15 +30,18 @@ import time
 
 import torch
 
-from ..ops import raster_kernels as rk
-from ..ops.binning import bin_faces
+from ..ops import binning, raster_kernels as rk
+from ..ops.binning import (bin_faces, bin_faces_capped, capacity,
+                           uses_capped_layout)
 from ..ops.energy import smooth_barrier_energy
 from ..ops.rasterize import (antialias_silhouette, screen_xy_table,
                              winner_screen_rows)
 from ..ops.transform import transform_pos
-from ..optim import adam_uniform, cosine_annealing_lr
-from ..train import init_train_state, make_train_step
-from .synthetic import bench_scene
+from ..optim import (adam, adam_uniform, cosine_annealing_lr,
+                     cosine_decay_schedule)
+from ..train import (init_train_state, loss_and_grad, make_train_step,
+                     validated_tile_k)
+from .synthetic import bench_scene, multisphere_scene
 
 
 def _wall_ms(fn, reps=10, warm=2):
@@ -51,30 +61,64 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--res", type=int, default=512)
+    ap.add_argument("--scene", choices=("bench", "multisphere"),
+                    default="bench")
+    ap.add_argument("--depth-normal", action="store_true")
+    ap.add_argument("--layout", choices=("rule", "flat"), default="rule")
     args = ap.parse_args(argv)
+    if args.layout == "flat":
+        binning.FLAT_BUDGET_BYTES = 1 << 62    # no scene leaves K1's lists
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     dev = torch.device("cuda")
     res = (args.res, args.res)
-    geo, batch = bench_scene(dev, args.views, args.res)
+    if args.scene == "multisphere":
+        geo, batch = multisphere_scene(dev, 18, args.views, args.res)
+        k = validated_tile_k(geo, batch, args.res)
+    else:
+        geo, batch = bench_scene(dev, args.views, args.res)
+        k = None
     st = geo.statics
     F = int(st.surface_fid.shape[0])
-    init_fn, update_fn = adam_uniform(
-        cosine_annealing_lr(0.2, 1500), grad_limit=True,
-        grad_limit_values=(0.01, 0.01), grad_limit_iters=(1500,))
-    step = make_train_step(st, update_fn, resolution=args.res)
+    dn = args.depth_normal
+    fit = dict(fit_depth=dn, fit_normal=dn)
+    if dn:
+        init_fn, update_fn = adam(cosine_decay_schedule(2e-3, 400, 0.05))
+    else:
+        init_fn, update_fn = adam_uniform(
+            cosine_annealing_lr(0.2, 1500), grad_limit=True,
+            grad_limit_values=(0.01, 0.01), grad_limit_iters=(1500,))
+    step = make_train_step(st, update_fn, resolution=args.res, tile_k=k,
+                           **fit)
     state = init_train_state(geo.tet_v, init_fn)
 
     x = geo.tet_v.detach().requires_grad_(True)
     pos = transform_pos(batch["mvp"], x[st.corner_vid])
-    bins = bin_faces(pos.detach(), st.edge_nbrs, res)
-    ids, z, g6k, gaux = rk.visibility(bins, res)
+    nbrs = None if dn else st.edge_nbrs
+    capped = uses_capped_layout(F, 11 if dn else 14, args.views, *res)
+    if capped:
+        def bin_step():
+            return bin_faces_capped(pos.detach(), nbrs, res,
+                                    capacity(k, F, res))
+        vis_name, vis = (("K2a_visibility_capped_ids",
+                          rk.visibility_capped_ids) if dn else
+                         ("K2b_visibility_capped", rk.visibility_capped))
+    else:
+        def bin_step():
+            return bin_faces(pos.detach(), nbrs, res)
+        vis_name = "K1_visibility"
+
+        def vis(b, r):
+            return rk.visibility(b, r, emit_g=not dn)
+    bins = bin_step()
+    vis_out = vis(bins, res)
 
     def energy():
         xe = geo.tet_v.detach().requires_grad_(True)
         smooth_barrier_energy(xe, st.energy, 2e-4, 2e-4, 2).backward()
 
     def aa_fwd_bwd():
+        ids, z, g6k, gaux = vis_out
         g6 = winner_screen_rows(screen_xy_table(pos, F), ids, g6k)
         alpha = antialias_silhouette(ids, z, g6, gaux)
         loss = torch.mean((alpha - batch["img"][..., 0]) ** 2) * 2000.0
@@ -87,11 +131,15 @@ def main(argv=None):
         "energy_fwd_bwd": energy,
         "transform": lambda: transform_pos(batch["mvp"],
                                            geo.tet_v[st.corner_vid]),
-        "binning": lambda: bin_faces(pos.detach(), st.edge_nbrs, res),
-        "K1_visibility": lambda: rk.visibility(bins, res),
-        "rows_K4_loss_bwd_K5_K3": aa_fwd_bwd,
-        "adam_uniform_update": update,
+        "binning": bin_step,
+        vis_name: lambda: vis(bins, res),
     }
+    if dn:
+        layers["loss_and_grad_depth_normal"] = lambda: loss_and_grad(
+            st, geo.tet_v, batch, 0, args.res, tile_k=k, **fit)
+    else:
+        layers["rows_K4_loss_bwd_K5_K3"] = aa_fwd_bwd
+    layers["optimizer_update"] = update
     for name, fn in layers.items():
         print(json.dumps({"layer": name, "ms": _wall_ms(fn)}), flush=True)
 
@@ -124,11 +172,13 @@ def main(argv=None):
     kernels.sort(reverse=True)
     busy_ms = busy / 1e3 / 5
     print(json.dumps({
-        "profile": "train_step", "steps": 5, "wall_ms_per_step": wall,
+        "profile": "train_step", "scene": args.scene, "depth_normal": dn,
+        "visibility": vis_name,
+        "steps": 5, "wall_ms_per_step": wall,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall,
         "top_kernels_ms_per_step": [
-            [k, round(us / 1e3 / 5, 5), n // 5] for us, k, n in kernels[:15]],
+            [k_, round(us / 1e3 / 5, 5), n // 5] for us, k_, n in kernels[:15]],
         "n_kernel_launches_per_step": sum(n for _, _, n in kernels) // 5,
     }), flush=True)
 
