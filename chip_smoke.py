@@ -28,9 +28,16 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                18 spheres, 14,796 faces, 8 views at 512x512, where the
                capped layout is taken with and without winner rows) at its
                first step with the validated per-tile capacity k: K2b and
-               K2a against their plain versions (ids and gaux equal, z and
-               g6 to 1e-6) and against K1 on the same scene (bit-equal,
-               n_drop 0); timed as in phase 3, K1 beside them
+               K2a against the walk that defines them and against the
+               plain form of their own search inside each face's pixel box
+               (ids and z to the bit, rows equal) and against K1 on the
+               same scene (bit-equal, n_drop 0); timed as in phase 3 (the
+               plain time is the boxed form's), K1 beside them. Then the
+               same comparison with the walk (a) at k = 512, below the
+               densest tile's count, where faces drop and K1 is no
+               yardstick, (b) on the bench scene's single sphere binned by
+               bin_faces_capped directly, (c) on a triangle that fills the
+               screen with small ones before and behind it
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
@@ -48,7 +55,6 @@ nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -59,25 +65,6 @@ H100_BYTES_PER_S = 3.35e12         # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 RES = 512
 N_VIEWS = 8
-
-
-def cuda_ms(fn, reps=25, warm=3):
-    """Median device time of one call, CUDA events around each call. A
-    sleep kernel holds the stream first, so the events time the work and
-    not the host's enqueue (unless ``fn`` itself waits for the device)."""
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -129,12 +116,14 @@ def main():
     from tssplat_torch.ops import raster_kernels as rk
     from tssplat_torch.ops.binning import (CAP_TILE_H, CAP_TILE_W, TILE_H,
                                            TILE_W, bin_faces,
-                                           bin_faces_capped,
+                                           bin_faces_capped, capacity,
                                            uses_capped_layout)
     from tssplat_torch.ops.transform import transform_pos
     from tssplat_torch.optim import (adam, adam_uniform, cosine_annealing_lr,
                                      cosine_decay_schedule)
     from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
+    from tssplat_torch.tools.timing import cuda_ms
+    from tssplat_torch.tools.vis_cases import fullscreen_triangles
     from tssplat_torch.train import (init_train_state, loss_and_grad,
                                      make_train_step, run_steps,
                                      validated_tile_k)
@@ -171,6 +160,7 @@ def main():
     with torch.no_grad():
         pos = transform_pos(batch["mvp"], geo.tet_v[geo.statics.corner_vid])
     bins = bin_faces(pos, geo.statics.edge_nbrs, res)
+    bench_pos, bench_nbrs = pos, geo.statics.edge_nbrs
     B, P = N_VIEWS, N_VIEWS * RES * RES
     results = []
 
@@ -336,19 +326,49 @@ def main():
     k1_out = rk.visibility(k1_bins, res)
     k1_ids = rk.visibility(bin_faces(pos, None, res), res, emit_g=False)
     k1_ms = cuda_ms(lambda: rk.visibility(k1_bins, res))
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    def check_capped(label, cb):
+        """K2b and K2a on ``cb`` against the walk: ids and z to the bit (the
+        sign of a zero included), the winner rows equal."""
+        walk = rk.visibility_capped_plain(cb, res)
+        got_g, got = rk.visibility_capped(cb, res), \
+            rk.visibility_capped_ids(cb, res)
+        torch.cuda.synchronize()
+        for name, out in (("K2b", got_g), ("K2a", got)):
+            require(torch.equal(out[0], walk[0]),
+                    f"{label}: {name} ids differ from the walk")
+            require(torch.equal(bits(out[1]), bits(walk[1])),
+                    f"{label}: {name} z differs from the walk")
+        require(torch.equal(got_g[2], walk[2])
+                and torch.equal(got_g[3], walk[3]),
+                f"{label}: K2b rows differ from the walk")
+        return got_g
+
     for name, nbrs, fn, plain, k1_ref, out_bytes, replaces in (
             ("visibility_capped", st.edge_nbrs, rk.visibility_capped,
              rk.visibility_capped_plain, k1_out, 48, ":113"),
             ("visibility_capped_ids", None, rk.visibility_capped_ids,
              rk.visibility_capped_ids_plain, k1_ids, 8, ":53")):
+        rows = nbrs is not None
         cb = bin_faces_capped(pos, nbrs, res, k)
         require(int(cb.n_drop.sum()) == 0, f"{name}: n_drop {cb.n_drop}")
+        t0 = time.perf_counter()
         got, want = fn(cb, res), plain(cb, res)
         torch.cuda.synchronize()
-        require(torch.equal(got[0], want[0]), f"{name}: ids differ from plain")
-        if len(got) == 4:
-            require(torch.equal(got[3], want[3]),
-                    f"{name}: gaux differ from plain")
+        walk_s = time.perf_counter() - t0
+        boxed = rk.visibility_capped_boxed_plain(cb, res, emit_g=rows)
+        run_tests = int(rk.boxed_pairs(cb, res)[6].sum())
+        for other, what in ((want, "the walk"), (boxed, "the boxed search")):
+            require(torch.equal(got[0], other[0]),
+                    f"{name}: ids differ from {what}")
+            require(torch.equal(bits(got[1]), bits(other[1])),
+                    f"{name}: z differs from {what}")
+            require(all(torch.equal(a, b)
+                        for a, b in zip(got[2:], other[2:])),
+                    f"{name}: rows differ from {what}")
         require(all(torch.equal(a, b) for a, b in zip(got, k1_ref)),
                 f"{name}: differs from K1 on the same scene")
         sc = int(cb.counts.sum())
@@ -359,17 +379,47 @@ def main():
         report(name, "tssplat_torch/csrc/vis_capped.cu",
                f"tssplat_tpu/ops/pallas_raster.py{replaces}",
                max_err(got, want), 1e-6, cuda_ms(lambda: fn(cb, res)),
-               cuda_ms(lambda: plain(cb, res), reps=3, warm=1),
+               cuda_ms(lambda: rk.visibility_capped_boxed_plain(
+                   cb, res, emit_g=rows), reps=3, warm=1),
                bound_ms(cb.table.numel() * 4 + sc * 4 + cb.counts.numel() * 4
                         + out_bytes * P, 30 * tests))
         print(f"[kernel] {name}: {sc} (tile, candidate) pairs in "
               f"{int((cb.counts > 0).sum())} of {cb.counts.numel()} tiles "
               f"(max {int(cb.counts.max())}, k {k}); {tests} pixel tests "
-              f"inside the faces' boxes, {CAP_TILE_H * CAP_TILE_W * sc} as "
-              f"the layout walks them; equal to K1 on the same scene; K1 "
-              f"there: {k1_ms:.4f} ms over {int(k1_bins.tile_count.sum())} "
-              f"({TILE_H}x{TILE_W} tile, face) pairs", flush=True)
-    del k1_bins, k1_out, k1_ids, cb, got, want, pos
+              f"inside the faces' exact boxes, {run_tests} inside the boxes "
+              f"the kernel clips (half a pixel of slack and one pixel more), "
+              f"{CAP_TILE_H * CAP_TILE_W * sc} as the walk makes them (one "
+              f"walk on the card: {walk_s * 1e3:.0f} ms with the kernel's "
+              f"launch); equal to the walk, to the boxed search and to K1 "
+              f"on the same scene; K1 there: {k1_ms:.4f} ms over "
+              f"{int(k1_bins.tile_count.sum())} ({TILE_H}x{TILE_W} tile, "
+              f"face) pairs", flush=True)
+
+    # the same kernels where K1 is no yardstick or the faces are other
+    cb = bin_faces_capped(pos, st.edge_nbrs, res, 512)
+    require(int(cb.n_drop.sum()) > 0 and int(cb.counts.max()) == 512,
+            f"k = 512 drops nothing: {cb.n_drop}")
+    check_capped("k = 512", cb)
+    print(f"[capped] (a) k = 512: n_drop per view {cb.n_drop.tolist()}; K2b "
+          f"and K2a equal the walk", flush=True)
+    cb = bin_faces_capped(bench_pos, bench_nbrs, res, capacity(None, F, res))
+    require(int(cb.n_drop.sum()) == 0, f"bench sphere: n_drop {cb.n_drop}")
+    got = check_capped("bench sphere", cb)
+    require(all(torch.equal(a, b) for a, b in zip(got, rk.visibility(
+        bin_faces(bench_pos, bench_nbrs, res), res))),
+        "bench sphere: K2b differs from K1")
+    print(f"[capped] (b) the bench scene's sphere, capped directly: "
+          f"{int(cb.counts.sum())} pairs, {int((got[0] > 0).sum())} "
+          f"foreground px; K2b and K2a equal the walk and K1", flush=True)
+    cb = bin_faces_capped(fullscreen_triangles(dev, N_VIEWS), None, res, 128)
+    got = check_capped("full-screen triangle", cb)
+    require(bool((got[0] > 0).all()) and int((got[0] > 1).sum()) > 1000,
+            "full-screen triangle: it does not fill the screen")
+    print(f"[capped] (c) a triangle over the whole screen and 40 small ones: "
+          f"{int((got[0] == 1).sum())} px of the large face, "
+          f"{int((got[0] > 1).sum())} of the small; K2b and K2a equal the "
+          f"walk", flush=True)
+    del k1_bins, k1_out, k1_ids, cb, got, want, boxed, pos, bench_pos
 
     # ---- 7/8. multi-sphere training: silhouette, then depth + normal ---------
     phases = (

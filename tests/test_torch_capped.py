@@ -125,60 +125,60 @@ def _winner_z64(table, ids, res):
 _PLAIN = {}
 
 
-def _port_capped(scene, rows, k):
-    """The port's capped bins and plain K2b (rows) / K2a outputs, numpy."""
-    key = (rows, k)
+def _port_capped(scene, rows, k, boxed=False):
+    """The port's capped bins and plain K2b (rows) / K2a outputs, numpy:
+    the walk, or with ``boxed`` the search inside each face's pixel box."""
+    key = (rows, k, boxed)
     if key not in _PLAIN:
         pos = torch.from_numpy(scene["pos"])
         nbrs = torch.from_numpy(scene["nbrs"]) if rows else None
         bins = bin_faces_capped(pos, nbrs, RES,
                                 capacity(k, scene["F"], RES))
-        out = rk.visibility_capped(bins, RES) if rows \
-            else rk.visibility_capped_ids(bins, RES)
+        if boxed:
+            out = rk.visibility_capped_boxed_plain(bins, RES, emit_g=rows)
+        else:
+            out = rk.visibility_capped(bins, RES) if rows \
+                else rk.visibility_capped_ids(bins, RES)
         _PLAIN[key] = (bins, [o.numpy() for o in out])
     return _PLAIN[key]
 
 
-@pytest.mark.parametrize("k", [None, 8], ids=["default_k", "k8"])
-@pytest.mark.parametrize("rows", [True, False], ids=["K2b", "K2a"])
-@pytest.mark.parametrize("variant", ["shared", "pregather"])
-def test_capped_visibility_matches_jax(scene, monkeypatch, variant, rows, k):
-    """(b) Plain K2b / K2a against JAX's _vis_kernel_g / _vis_kernel
-    (interpret mode) in the shared-table and the pre-gather variant, with
-    the default capacity and with k = 8, where tiles overflow. The scene's
-    JAX tier-2 pool is empty, so both keep each tile's k smallest ids:
-    n_drop per view is equal, coverage is equal, and the winners are equal
-    except at <= 0.5% of foreground pixels, each of which is a depth
-    near-tie (XLA's z is a few ulps off plain float32: z within 1e-6) or,
-    without drops, a pixel where the port agrees with JAX's own
-    brute-force rasterize_ids and the interpreted kernel does not (an edge
-    function a few ulps off zero where one sphere's face edge crosses
-    another's). z to 1e-6 and the rows equal where the winners agree."""
+_JAX = {}
+
+
+def _jax_capped(scene, monkeypatch, variant, rows, k):
+    """JAX's _vis_kernel_g (rows) / _vis_kernel outputs (interpret mode) in
+    the given layout variant, and its per-view drops, numpy."""
     F = scene["F"]
     R = 14 if rows else 11
     # JAX's shared table fits a budget between its table and its flat size
     budget = {"shared": (F + 1) * R * 4 + 1024, "pregather": 0}[variant]
     monkeypatch.setattr(PR, "_SMEM_TBL_BUDGET", budget)
     monkeypatch.setattr(binning, "FLAT_BUDGET_BYTES", budget)
-    PR._rasterize_ids_pallas_jit.clear_cache()
     assert uses_capped_layout(F, R, 2, *RES)
-    kk = capacity(k, F, RES)
-    pos = jnp.asarray(scene["pos"])
-    tri = jnp.asarray(scene["tri_c"])
-    for b in range(2):                           # JAX's tier-2 pool is empty
-        n_pool = PR.bin_triangles(pos[b], tri, RES, 8, 128, kk, corner=True,
-                                  flat=True)[4]
-        assert int(n_pool) == 0
-    drops = []
-    out = PR.rasterize_ids_pallas(
-        pos, tri, RES, k=k, interpret=True, corner=True, with_z=True,
-        with_g=jnp.asarray(scene["nbrs"], jnp.int32) if rows else None,
-        drops_out=drops)
-    PR._rasterize_ids_pallas_jit.clear_cache()
-    want = [np.asarray(a) for a in out]
-    bins, got = _port_capped(scene, rows, k)
+    key = (variant, rows, k)
+    if key not in _JAX:
+        PR._rasterize_ids_pallas_jit.clear_cache()
+        kk = capacity(k, F, RES)
+        pos = jnp.asarray(scene["pos"])
+        tri = jnp.asarray(scene["tri_c"])
+        for b in range(2):                       # JAX's tier-2 pool is empty
+            n_pool = PR.bin_triangles(pos[b], tri, RES, 8, 128, kk,
+                                      corner=True, flat=True)[4]
+            assert int(n_pool) == 0
+        drops = []
+        out = PR.rasterize_ids_pallas(
+            pos, tri, RES, k=k, interpret=True, corner=True, with_z=True,
+            with_g=jnp.asarray(scene["nbrs"], jnp.int32) if rows else None,
+            drops_out=drops)
+        PR._rasterize_ids_pallas_jit.clear_cache()
+        _JAX[key] = ([np.asarray(a) for a in out], np.asarray(drops[0]))
+    return _JAX[key]
 
-    np.testing.assert_array_equal(bins.n_drop.numpy(), np.asarray(drops[0]))
+
+def _assert_matches_jax(scene, bins, got, want, drops, rows, k):
+    """The allowances of test_capped_visibility_matches_jax (see there)."""
+    np.testing.assert_array_equal(bins.n_drop.numpy(), drops)
     assert (int(bins.n_drop.sum()) > 0) == (k == 8)
     ids, jids = got[0], want[0]
     np.testing.assert_array_equal(ids > 0, jids > 0)
@@ -203,6 +203,39 @@ def test_capped_visibility_matches_jax(scene, monkeypatch, variant, rows, k):
         np.testing.assert_allclose(got[2][s6], want[2][s6], atol=1e-6)
         s4 = np.broadcast_to(same[:, None], want[3].shape)
         np.testing.assert_array_equal(got[3][s4], want[3][s4])
+
+
+@pytest.mark.parametrize("k", [None, 8], ids=["default_k", "k8"])
+@pytest.mark.parametrize("rows", [True, False], ids=["K2b", "K2a"])
+@pytest.mark.parametrize("variant", ["shared", "pregather"])
+def test_capped_visibility_matches_jax(scene, monkeypatch, variant, rows, k):
+    """(b) Plain K2b / K2a against JAX's _vis_kernel_g / _vis_kernel
+    (interpret mode) in the shared-table and the pre-gather variant, with
+    the default capacity and with k = 8, where tiles overflow. The scene's
+    JAX tier-2 pool is empty, so both keep each tile's k smallest ids:
+    n_drop per view is equal, coverage is equal, and the winners are equal
+    except at <= 0.5% of foreground pixels, each of which is a depth
+    near-tie (XLA's z is a few ulps off plain float32: z within 1e-6) or,
+    without drops, a pixel where the port agrees with JAX's own
+    brute-force rasterize_ids and the interpreted kernel does not (an edge
+    function a few ulps off zero where one sphere's face edge crosses
+    another's). z to 1e-6 and the rows equal where the winners agree."""
+    want, drops = _jax_capped(scene, monkeypatch, variant, rows, k)
+    bins, got = _port_capped(scene, rows, k)
+    _assert_matches_jax(scene, bins, got, want, drops, rows, k)
+
+
+@pytest.mark.parametrize("k", [None, 8], ids=["default_k", "k8"])
+@pytest.mark.parametrize("rows", [True, False], ids=["K2b", "K2a"])
+@pytest.mark.parametrize("variant", ["shared", "pregather"])
+def test_boxed_visibility_matches_jax(scene, monkeypatch, variant, rows, k):
+    """The search the CUDA kernels run (each candidate tested inside its
+    pixel box, winners by the minimum of a packed (z, id) key), in its
+    plain form, against the same JAX kernels under the same allowances as
+    test_capped_visibility_matches_jax."""
+    want, drops = _jax_capped(scene, monkeypatch, variant, rows, k)
+    bins, got = _port_capped(scene, rows, k, boxed=True)
+    _assert_matches_jax(scene, bins, got, want, drops, rows, k)
 
 
 @pytest.mark.parametrize("res", [RES, (128, 128)], ids=["64x128", "128x128"])

@@ -13,6 +13,9 @@ from tssplat_torch.mesh.tetmesh import TetMesh
 from tssplat_torch.ops import raster_kernels as rk
 from tssplat_torch.ops.binning import bin_faces, bin_faces_capped, capacity
 from tssplat_torch.ops.transform import fibonacci_views, transform_pos
+from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
+from tssplat_torch.tools.vis_cases import CASE_NAMES, capped_cases
+from tssplat_torch.train import validated_tile_k
 
 torch.set_num_threads(1)
 
@@ -127,3 +130,102 @@ def test_capped_visibility_kernels_match_plain(capped_scene, k):
     counts = rk.launch_counts()
     assert counts["visibility_capped"] > 0
     assert counts["visibility_capped_ids"] > 0
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _assert_capped_kernels_equal_plain(bins, res):
+    """K2b and K2a on ``bins`` against the walk and against the boxed
+    search in its plain form: ids and z bit for bit (z to the sign of
+    zero), the winner rows equal."""
+    walk = rk.visibility_capped_plain(bins, res)
+    boxed = rk.visibility_capped_boxed_plain(bins, res)
+    got_g = rk.visibility_capped(bins, res)
+    got = rk.visibility_capped_ids(bins, res)
+    torch.cuda.synchronize()
+    for want in (walk, boxed):
+        for a, b in zip(got_g[:2] + got, want[:2] * 2):
+            assert torch.equal(_bits(a), _bits(b))
+        for a, b in zip(got_g[2:], want[2:]):     # background rows: +-0.0
+            assert torch.equal(a, b)
+    return got_g
+
+
+@pytest.fixture(scope="module")
+def corner_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return capped_cases(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_capped_kernels_on_corner_cases(corner_cases, name):
+    """K2b and K2a on the inputs that corner the search inside the box:
+    drops, twin faces, signed zeros, a face that fills every tile, rows
+    with NaN, infinite and huge coordinates, padding, empty tiles, thin
+    faces with their vertices on pixel centres."""
+    bins, res = corner_cases[name]
+    ids = _assert_capped_kernels_equal_plain(bins, res)[0]
+    if name == "all_tiles_empty":
+        assert not bool(ids.any())
+    elif name == "fullscreen":
+        assert bool((ids > 0).all())
+    else:
+        assert int((ids > 0).sum()) > 100
+
+
+@pytest.fixture(scope="module")
+def multisphere():
+    """The 18-sphere scene (14,796 faces, 8 views at 512x512) at its first
+    step: clip positions, edge neighbours and the validated capacity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    geo, batch = multisphere_scene(torch.device("cuda"), 18, 8, 512)
+    k = validated_tile_k(geo, batch, 512)
+    with torch.no_grad():
+        pos = transform_pos(batch["mvp"],
+                            geo.tet_v[geo.statics.corner_vid])
+    return dict(pos=pos, nbrs=geo.statics.edge_nbrs, k=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [None, 512], ids=["validated_k", "k512_drops"])
+def test_capped_kernels_on_the_multisphere_scene(multisphere, k):
+    """K2b and K2a at the main path's shape against both plain versions:
+    at the validated capacity (nothing drops, so they also equal K1) and at
+    k = 512, below the densest tile's count, where faces drop and K1 is no
+    yardstick."""
+    res = (512, 512)
+    pos, nbrs = multisphere["pos"], multisphere["nbrs"]
+    bins = bin_faces_capped(pos, nbrs, res, k or multisphere["k"])
+    got = _assert_capped_kernels_equal_plain(bins, res)
+    if k is None:
+        assert int(bins.n_drop.sum()) == 0
+        for a, b in zip(got, rk.visibility(bin_faces(pos, nbrs, res), res)):
+            assert torch.equal(_bits(a), _bits(b))
+    else:
+        assert int(bins.counts.max()) == k and int(bins.n_drop.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_capped_kernels_on_the_bench_sphere():
+    """K2b and K2a on the bench scene's single sphere (2,012 faces, larger
+    on screen than the multi-sphere scene's), binned by bin_faces_capped
+    directly: the layout rule keeps this scene on K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    res = (512, 512)
+    geo, batch = bench_scene(torch.device("cuda"), 8, 512)
+    st = geo.statics
+    with torch.no_grad():
+        pos = transform_pos(batch["mvp"], geo.tet_v[st.corner_vid])
+    F = int(st.surface_fid.shape[0])
+    bins = bin_faces_capped(pos, st.edge_nbrs, res, capacity(None, F, res))
+    assert int(bins.n_drop.sum()) == 0
+    got = _assert_capped_kernels_equal_plain(bins, res)
+    for a, b in zip(got, rk.visibility(bin_faces(pos, st.edge_nbrs, res),
+                                       res)):
+        assert torch.equal(_bits(a), _bits(b))

@@ -30,9 +30,10 @@ its candidates in exactly the scenes where the JAX package leaves its flat
 layout (``pallas_raster.py:732-759``), whose size test is the TPU's SMEM
 budget ``FLAT_BUDGET_BYTES``. The rule decides only which scenes cap; it
 puts no limit on the port's kernels, which read their tables from global
-memory at any size. It is kept for parity with the JAX package alone
-(the same scenes drop the same faces): nothing on the GPU calls for it,
-and K1 on the same scene is both faster and lossless (PERF.md).
+memory at any size. It is kept for parity with the JAX package (the same
+scenes drop the same faces, counted per 8x128 tile as JAX counts them):
+nothing on the GPU calls for it. K2a/K2b search each candidate inside its
+pixel box and are no slower than K1 on the same scene (PERF.md).
 
 Per-face table rows, (B, F, 16) f32, one 64-byte row per face:
   ax, ay, bx, by, cx, cy, z0, z1, z2, inv_area, nbr0, nbr1, nbr2, 0, 0, 0

@@ -17,8 +17,12 @@ device, dtype, shape and contiguity, allocates the outputs, launches on
 PyTorch's current stream, raises if ``cudaGetLastError`` is not 0, and
 adds one to its ``launches`` count. The plain versions repeat the kernels'
 arithmetic in the same order, so on the card the two agree to the last bit
-except where K3's atomics reorder sums. What bounds each kernel and what
-its design does about it is noted at the top of its source.
+except where K3's atomics reorder sums. K2a/K2b have two: the walk over
+each tile's candidates, which defines the result and is what a CPU tensor
+gets, and ``visibility_capped_boxed_plain``, the kernels' own search inside
+each face's pixel box, which the tests hold against the walk. What bounds
+each kernel and what its design does about it is noted at the top of its
+source.
 """
 
 from __future__ import annotations
@@ -264,6 +268,134 @@ def visibility_capped_plain(bins: CappedBins, resolution: Tuple[int, int]):
     """Plain version of K2b: K2a's walk, then the winner's rows."""
     ids, z = visibility_capped_ids_plain(bins, resolution)
     return (ids, z, *_winner_rows(bins.table, ids))
+
+
+# The kernels do not walk: they test each candidate only at the pixels of
+# its screen box and take the minimum of a packed (z, id) key per pixel.
+# ``visibility_capped_boxed_plain`` repeats that algorithm in PyTorch, so the
+# key's order, the fold of -0.0, the box rule and the padding can be held
+# against the walk (the definition) where there is no card.
+
+_KEY_BACKGROUND = torch.iinfo(torch.int64).max
+
+
+def _clip_axis(v: torch.Tensor, n: int, origin: torch.Tensor, extent: int):
+    """One axis of the faces' pixel boxes (csrc/vis_capped.cu clip_axis):
+    vertex NDC coordinates v (P,3) on an axis of n pixels, clipped to the
+    tile pixels [origin, origin + extent). Returns the inclusive global
+    pixel range (p0, p1) as int64 and ``empty`` (P,) bool. The box is the
+    vertices' pixel-centre span with binning's half-pixel slack
+    (``_tile_range`` at a tile of one pixel) and one more pixel on each
+    side; a non-finite coordinate empties it. Floats are clamped before the
+    cast, so a huge coordinate cannot overflow it."""
+    pix = (v + 1.0) * 0.5 * n - 0.5
+    lo, hi = pix.amin(-1), pix.amax(-1)
+    f0 = torch.ceil(lo - 0.5) - 1.0
+    f1 = torch.floor(hi + 0.5) + 1.0
+    t0 = origin.to(v.dtype)
+    t1 = t0 + (extent - 1)
+    empty = ~torch.isfinite(lo) | ~torch.isfinite(hi) | (f1 < t0) | (f0 > t1)
+    p0 = torch.maximum(torch.nan_to_num(f0), t0).to(torch.int64)
+    p1 = torch.minimum(torch.nan_to_num(f1), t1).to(torch.int64)
+    return p0, p1, empty
+
+
+def _pack_key(z: torch.Tensor, id1: torch.Tensor) -> torch.Tensor:
+    """(z, id+1) as an int64 whose signed order is the winner's order:
+    smaller z first (-0.0 folded onto +0.0, which compare equal), then the
+    smaller id; bit 0 keeps the folded sign so that the z read back has the
+    bits it came with. z must be finite."""
+    bits = z.contiguous().view(torch.int32)
+    neg_zero = bits == -2 ** 31
+    bits = torch.where(neg_zero, torch.zeros_like(bits), bits).long()
+    mono = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+    return mono * 2 ** 32 + id1.long() * 2 + neg_zero.long()
+
+
+def _unpack_key(key: torch.Tensor):
+    """Inverse of ``_pack_key``: (ids+1 int32, z f32), 0 on background."""
+    fg = key != _KEY_BACKGROUND
+    key = torch.where(fg, key, torch.zeros_like(key))
+    low = key & 0xFFFFFFFF
+    mono = key >> 32
+    bits = torch.where(mono >= 0, mono, mono ^ 0x7FFFFFFF).to(torch.int32)
+    z = bits.view(torch.float32)
+    z = torch.where((low & 1) == 1, torch.full_like(z, -0.0), z)
+    return (low >> 1).to(torch.int32), z
+
+
+def boxed_pairs(bins: CappedBins, resolution: Tuple[int, int]):
+    """Every live (tile, candidate) pair of the capped layout with its
+    clipped pixel box, in the order of the candidate matrix: (view, face,
+    x0, x1, y0, y1, npx), int64 (P,) each; x and y are global pixel indices,
+    inclusive, and npx is the number of pixel tests the pair needs (0 for
+    an empty box or a face that can cover nothing)."""
+    H, W = resolution
+    table = bins.table
+    dev = table.device
+    nt = bins.nty * bins.ntx
+    k = bins.cand.shape[1]
+    live = torch.arange(k, device=dev)[None] < bins.counts[:, None]
+    slot = live.nonzero()[:, 0]                  # flat tile of every pair
+    f = bins.cand[live].long()                   # padding is never read
+    view, tile = slot // nt, slot % nt
+    r = table[view, f]                           # (P,16)
+    x0, x1, ex = _clip_axis(r[:, 0:5:2], W, (tile % bins.ntx) * CAP_TILE_W,
+                            CAP_TILE_W)
+    y0, y1, ey = _clip_axis(r[:, 1:6:2], H, (tile // bins.ntx) * CAP_TILE_H,
+                            CAP_TILE_H)
+    keep = ~ex & ~ey & (r[:, 9] != 0)            # inv_area 0 covers nothing
+    npx = (x1 - x0 + 1) * (y1 - y0 + 1)
+    return view, f, x0, x1, y0, y1, torch.where(keep, npx,
+                                                torch.zeros_like(npx))
+
+
+def visibility_capped_boxed_plain(bins: CappedBins,
+                                  resolution: Tuple[int, int],
+                                  emit_g: bool = True):
+    """The kernels' own algorithm in PyTorch: expand every live (tile,
+    candidate) pair into the pixels of its clipped box, evaluate coverage
+    and z there in the kernels' arithmetic order, pack (z, id+1) keys and
+    take the minimum per pixel with one scatter-reduce. Equal to the walk
+    (``visibility_capped_plain`` / ``visibility_capped_ids_plain``) bit for
+    bit; (ids, z, g6, gaux), or (ids, z) with ``emit_g`` off. One host read
+    (the number of pixel tests, ``boxed_pairs(...)[6].sum()``)."""
+    H, W = resolution
+    table = bins.table
+    B, F, _ = table.shape
+    dev = table.device
+    view, f, x0, x1, y0, y1, npx = boxed_pairs(bins, resolution)
+    bw = x1 - x0 + 1
+    total = int(npx.sum())                       # host read
+
+    # one row per pixel test
+    src = torch.repeat_interleave(torch.arange(f.numel(), device=dev), npx,
+                                  output_size=total)
+    local = torch.arange(total, device=dev) \
+        - (torch.cumsum(npx, 0) - npx)[src]
+    bws = bw[src]
+    col = x0[src] + local % bws
+    row = y0[src] + local // bws
+    px = ndc_center(col.to(torch.float32), W)
+    py = ndc_center(row.to(torch.float32), H)
+    r = table[view[src], f[src]]                 # (total,16)
+    ax, ay, bx, by = r[:, 0], r[:, 1], r[:, 2], r[:, 3]
+    cx, cy, z0, z1 = r[:, 4], r[:, 5], r[:, 6], r[:, 7]
+    z2, inv_area = r[:, 8], r[:, 9]
+    e0 = ((cx - bx) * (py - by) - (cy - by) * (px - bx)) * inv_area
+    e1 = ((ax - cx) * (py - cy) - (ay - cy) * (px - cx)) * inv_area
+    e2 = ((bx - ax) * (py - ay) - (by - ay) * (px - ax)) * inv_area
+    z = e0 * z0 + e1 * z1 + e2 * z2
+    cov = (e0 >= 0) & (e1 >= 0) & (e2 >= 0) & (inv_area != 0) \
+        & (z >= -1.0) & (z <= 1.0)
+
+    key = _pack_key(z[cov], f[src][cov] + 1)
+    pixel = (view[src][cov] * H + row[cov]) * W + col[cov]
+    best = torch.full((B * H * W,), _KEY_BACKGROUND, dtype=torch.int64,
+                      device=dev)
+    best.scatter_reduce_(0, pixel, key, "amin")
+    ids, zw = _unpack_key(best.view(B, H, W))
+    return (ids, zw, *_winner_rows(table, ids)) if emit_g else (ids, zw)
 
 
 # ---------------------------------------------------------------------------
