@@ -14,7 +14,11 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                bytes the inputs need (each read once, outputs written once)
                over 3.35 TB/s, or the f32 operations over 67 TFLOP/s
                (visibility: 30 per pixel test, counting for each
-               (tile, face) pair only the tile's pixels in the face's box)
+               (tile, face) pair only the tile's pixels in the face's box).
+               K4 and K5 equal their plain versions by value, here and on
+               every input of tools/aa_cases.py; they are also timed with
+               every id 0 (the streaming floor) and with L2 flushed, and
+               the pairs whose ids differ and the valid ones are counted
   4. train   — the geometry-stage train step of the bench scene: one
                TetSphere tet_sphere(0.03, radius=0.25) (2,012 faces),
                8 views at 512x512, ellipsoid alpha targets, AdamUniform with
@@ -38,6 +42,9 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                yardstick, (b) on the bench scene's single sphere binned by
                bin_faces_capped directly, (c) on a triangle that fills the
                screen with small ones before and behind it
+  6b. antialias at the multi-sphere scene's first step — K4 and K5 on
+               the silhouette step's inputs (K2b's outputs) and on the depth
+               + normal step's (the shaded winners' rows), as in phase 3
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
@@ -61,16 +68,8 @@ import time
 
 import torch
 
-H100_BYTES_PER_S = 3.35e12         # HBM3, H100 SXM data sheet
-H100_F32_FLOP_PER_S = 67e12        # f32 outside the tensor cores
 RES = 512
 N_VIEWS = 8
-
-
-def bound_ms(n_bytes, n_ops):
-    t_b = n_bytes / H100_BYTES_PER_S
-    t_o = n_ops / H100_F32_FLOP_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def box_tests(table, faces, per_tile, nty, ntx, tile_h, tile_w, res):
@@ -121,8 +120,12 @@ def main():
     from tssplat_torch.ops.transform import transform_pos
     from tssplat_torch.optim import (adam, adam_uniform, cosine_annealing_lr,
                                      cosine_decay_schedule)
+    from tssplat_torch.tools.aa_cases import aa_cases
+    from tssplat_torch.tools.compare_kernels import (aa_bounds,
+                                                     multisphere_aa_inputs,
+                                                     time_aa)
     from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
-    from tssplat_torch.tools.timing import cuda_ms
+    from tssplat_torch.tools.timing import bound_ms, cuda_ms
     from tssplat_torch.tools.vis_cases import fullscreen_triangles
     from tssplat_torch.train import (init_train_state, loss_and_grad,
                                      make_train_step, run_steps,
@@ -197,40 +200,52 @@ def main():
            bound_ms(k1_bytes, k1_ops))
     ids, z, g6, gaux = got
 
-    # pixels in at least one pair whose ids differ (the pairs K4/K5 evaluate)
-    fg = ids > 0
-    dh = (ids[:, :, 1:] != ids[:, :, :-1]) & (fg[:, :, 1:] | fg[:, :, :-1])
-    dv = (ids[:, 1:] != ids[:, :-1]) & (fg[:, 1:] | fg[:, :-1])
-    sil = torch.zeros_like(fg)
-    sil[:, :, 1:] |= dh
-    sil[:, :, :-1] |= dh
-    sil[:, 1:] |= dv
-    sil[:, :-1] |= dv
-    n_sil, n_fg = int(sil.sum()), int(fg.sum())
-    n_pairs = int(dh.sum() + dv.sum())
-    print(f"[kernel] inputs: {n_fg} foreground px, {n_pairs} pixel pairs "
-          f"whose ids differ, {n_sil} px in such a pair, "
-          f"{int(cnt.sum())} (tile, face) pairs", flush=True)
+    def check_aa(label, inp, ct, timed=True):
+        """K4 and K5 equal by value to their plain versions on ``inp``; with
+        ``timed``, their times (as they are, every id 0, L2 flushed), the
+        pair counts and the bounds, printed. Returns (K5's d g6, the max
+        abs errors of K4 and K5, times, counts)."""
+        got_f, got_b = rk.aa_forward(*inp), rk.aa_backward(*inp, ct)
+        want_f, want_b = rk.aa_forward_plain(*inp), \
+            rk.aa_backward_plain(*inp, ct)
+        require(torch.equal(got_f, want_f), f"{label}: K4 differs from plain")
+        require(torch.equal(got_b, want_b), f"{label}: K5 differs from plain")
+        errs = (max_err([got_f], [want_f]), max_err([got_b], [want_b]))
+        if not timed:
+            return got_b, errs, None, None
+        times, counts = time_aa(rk.aa_forward, rk.aa_backward, inp, ct), \
+            aa_bounds(inp)
+        print(f"[aa] {label}: {counts['pairs_differ']} pixel pairs whose ids "
+              f"differ, {counts['pairs_valid']} valid; z read at "
+              f"{counts['px_z']} px, rows at {counts['px_owner']} owners, "
+              f"ct at {counts['px_in_a_valid_pair']} px; "
+              + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
+              + f"; bounds K4 {counts['K4_bound'][0]:.4f}, K5 "
+              f"{counts['K5_bound'][0]:.4f} ms; K4 and K5 equal to plain",
+              flush=True)
+        return got_b, errs, times, counts
 
-    # K4
-    got = rk.aa_forward(ids, z, g6, gaux)
-    want = rk.aa_forward_plain(ids, z, g6, gaux)
-    report("aa_forward", "tssplat_torch/csrc/aa_fwd.cu",
-           "tssplat_tpu/ops/pallas_raster.py:1171", max_err([got], [want]),
-           1e-5, cuda_ms(lambda: rk.aa_forward(ids, z, g6, gaux)),
-           cuda_ms(lambda: rk.aa_forward_plain(ids, z, g6, gaux)),
-           bound_ms(8 * P + 44 * n_sil, 100 * n_pairs))
-
-    # K5 under a seeded cotangent
+    # K4 and K5 under a seeded cotangent; first on the corner cases
     gen = torch.Generator(device=dev).manual_seed(0)
+    cases = aa_cases(dev)
+    for name, inp in cases.items():
+        check_aa(name, inp, torch.randn(inp[0].shape, generator=gen,
+                                        device=dev), timed=False)
+    print(f"[aa] K4 and K5 equal their plain versions on the {len(cases)} "
+          f"inputs of tools/aa_cases.py", flush=True)
+    inp = (ids, z, g6, gaux)
     ct = torch.randn((B, RES, RES), generator=gen, device=dev)
-    got = rk.aa_backward(ids, z, g6, gaux, ct)
-    want = rk.aa_backward_plain(ids, z, g6, gaux, ct)
+    got, errs, times, counts = check_aa("bench scene", inp, ct)
+    fg = ids > 0
+    n_fg = int(fg.sum())
+    report("aa_forward", "tssplat_torch/csrc/aa_fwd.cu",
+           "tssplat_tpu/ops/pallas_raster.py:1171", errs[0], 0.0,
+           times["K4_ms"], cuda_ms(lambda: rk.aa_forward_plain(*inp)),
+           counts["K4_bound"])
     report("aa_backward", "tssplat_torch/csrc/aa_bwd.cu",
-           "tssplat_tpu/ops/pallas_raster.py:1200", max_err([got], [want]),
-           1e-5, cuda_ms(lambda: rk.aa_backward(ids, z, g6, gaux, ct)),
-           cuda_ms(lambda: rk.aa_backward_plain(ids, z, g6, gaux, ct)),
-           bound_ms(28 * P + 48 * n_sil, 150 * n_pairs))
+           "tssplat_tpu/ops/pallas_raster.py:1200", errs[1], 0.0,
+           times["K5_ms"], cuda_ms(lambda: rk.aa_backward_plain(*inp, ct)),
+           counts["K5_bound"])
 
     # K3 on the cotangent the main path gives it (K5's d g6), and on seeded
     # cotangents at every foreground pixel; atomics reorder the sums
@@ -280,7 +295,8 @@ def main():
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     require(n_drop == 0, f"n_drop = {n_drop}")
     path = ("visibility", "wsr_table_grad", "aa_forward", "aa_backward")
-    require(all(counts[n] > 0 for n in path), f"a kernel never ran: {counts}")
+    require(all(counts[n] == 23 for n in path),
+            f"launches {counts}, expected 23 of each of {path}")
     require(last == losses[-1] and torch.isfinite(state.params).all(),
             "non-finite parameters")
     print(f"[train] {20 / dt:.3f} it/s over 20 steps (8x{RES}^2, {F} faces) "
@@ -306,6 +322,7 @@ def main():
           f"{l_cpu:.6f}), grad max err {gerr:.3g} of max {scale:.3g}",
           flush=True)
     del geo, batch, state, bins, got, want, ids, z, g6, gaux, ct, ct6, dense6
+    del inp, cases
 
     # ---- 6. capped visibility at the multi-sphere scene's first step ----------
     t0 = time.perf_counter()
@@ -420,6 +437,12 @@ def main():
           f"{int((got[0] > 1).sum())} of the small; K2b and K2a equal the "
           f"walk", flush=True)
     del k1_bins, k1_out, k1_ids, cb, got, want, boxed, pos, bench_pos
+
+    # ---- 6b. antialias at the multi-sphere scene's first step ------------
+    for name, inp in multisphere_aa_inputs(ms_geo, ms_batch, res, k).items():
+        check_aa(name, inp, torch.randn(inp[0].shape, generator=gen,
+                                        device=dev))
+    del inp
 
     # ---- 7/8. multi-sphere training: silhouette, then depth + normal ---------
     phases = (

@@ -14,6 +14,7 @@ from tssplat_torch.ops import raster_kernels as rk
 from tssplat_torch.ops.binning import bin_faces, bin_faces_capped, capacity
 from tssplat_torch.ops.transform import fibonacci_views, transform_pos
 from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
+from tssplat_torch.tools.aa_cases import CASE_NAMES as AA_CASE_NAMES, aa_cases
 from tssplat_torch.tools.vis_cases import CASE_NAMES, capped_cases
 from tssplat_torch.train import validated_tile_k
 
@@ -67,17 +68,43 @@ def test_table_grad_kernel_matches_plain(scene):
 
 @pytest.mark.cuda
 def test_antialias_kernels_match_plain(scene):
-    """K4 and K5 against their plain versions: same arithmetic, atol 1e-5."""
+    """K4 and K5 against their plain versions: same arithmetic in the same
+    order, equal by value."""
     ids, z, g6, gaux = scene["vis"]
     ct = torch.randn((2,) + scene["res"], generator=scene["gen"],
                      device=ids.device)
     torch.testing.assert_close(rk.aa_forward(ids, z, g6, gaux),
                                rk.aa_forward_plain(ids, z, g6, gaux),
-                               atol=1e-5, rtol=0)
+                               atol=0, rtol=0)
     torch.testing.assert_close(rk.aa_backward(ids, z, g6, gaux, ct),
                                rk.aa_backward_plain(ids, z, g6, gaux, ct),
-                               atol=1e-5, rtol=0)
+                               atol=0, rtol=0)
     assert rk.launch_counts()["aa_backward"] > 0
+
+
+@pytest.fixture(scope="module")
+def aa_corner_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return aa_cases(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", AA_CASE_NAMES)
+def test_antialias_kernels_on_corner_cases(aa_corner_cases, name):
+    """K4 and K5 equal by value to their plain versions on the inputs that
+    corner their tiles, runs and pair list: pairs along and across the
+    tiles' borders, on the image's border, ragged sizes (a width that is no
+    multiple of four takes the scalar loads), empty and full tiles,
+    interior edges, faces meeting at a vertex, equal depths, crossings at
+    t = 0.5 exactly and one-pixel faces."""
+    ids, z, g6, gaux = aa_corner_cases[name]
+    ct = torch.randn(ids.shape, generator=torch.Generator(
+        device=ids.device).manual_seed(3), device=ids.device)
+    assert torch.equal(rk.aa_forward(ids, z, g6, gaux),
+                       rk.aa_forward_plain(ids, z, g6, gaux))
+    assert torch.equal(rk.aa_backward(ids, z, g6, gaux, ct),
+                       rk.aa_backward_plain(ids, z, g6, gaux, ct))
 
 
 @pytest.fixture(scope="module", params=[(128, 128), (64, 384)],

@@ -11,6 +11,8 @@
   interpolate(attr, rast) -> (B,H,W,C) barycentric attributes
   antialias(rast, pos_clip, edge_nbrs) -> (B,H,W) coverage antialias of
       the ``rasterize`` path
+  antialias_rows(rast, tbl6, edge_nbrs) -> K4/K5's inputs (ids, z, g6,
+      gaux) on that path, without gradient
 
 Visibility (binning + K1, K2a or K2b) runs without gradients. Which
 binning: the capped 8x128 layout (K2a without rows, K2b with) in exactly
@@ -271,18 +273,16 @@ def antialias_silhouette(ids: torch.Tensor, z: torch.Tensor,
     return _AntialiasSilhouette.apply(g6, ids, z, gaux)
 
 
-def antialias(rast: torch.Tensor, pos_clip: torch.Tensor,
-              edge_nbrs: torch.Tensor) -> torch.Tensor:
-    """Antialiased coverage (B,H,W) of the ``rasterize`` path: ``antialias``
-    (rasterize.py:975) of the colour clip(id, 0, 1) without precomputed
-    rows. The winner rows' value is a plain gather of the face table (xy,
-    edge neighbours, sign of the screen area); their gradient goes through
-    ``winner_screen_rows`` (K3); K4/K5 run the pairs. The owner test uses
-    the shaded z of ``rast``, as JAX's does."""
+def antialias_rows(rast: torch.Tensor, tbl6: torch.Tensor,
+                   edge_nbrs: torch.Tensor):
+    """K4/K5's inputs on the ``rasterize`` path, without gradient: (ids
+    (B,H,W) int32, z (B,H,W), g6 (B,6,H,W), gaux (B,4,H,W)). The rows are a
+    plain gather of the face table ``tbl6`` (B,F,6) = (ax,bx,cx,ay,by,cy)
+    with the edge neighbours and the sign of the screen area; z is the
+    shaded z of ``rast``, which the owner test uses, as JAX's does."""
     ids = rast[..., 3].detach().to(torch.int32).contiguous()
     z = rast[..., 2].detach().contiguous()
-    B, F = pos_clip.shape[0], edge_nbrs.shape[0]
-    tbl6 = screen_xy_table(pos_clip, F)
+    B, F = tbl6.shape[0], edge_nbrs.shape[0]
     with torch.no_grad():
         t = tbl6.detach()
         area = edge(t[..., 0], t[..., 3], t[..., 1], t[..., 4], t[..., 2],
@@ -290,5 +290,16 @@ def antialias(rast: torch.Tensor, pos_clip: torch.Tensor,
         nb = edge_nbrs.to(t.dtype).unsqueeze(0).expand(B, F, 3)
         rows = _row_gather(torch.cat([t, nb, torch.sign(area)[..., None]],
                                      dim=-1), ids).permute(0, 3, 1, 2)
-    g6 = winner_screen_rows(tbl6, ids, rows[:, :6].contiguous())
-    return antialias_silhouette(ids, z, g6, rows[:, 6:].contiguous())
+    return ids, z, rows[:, :6].contiguous(), rows[:, 6:].contiguous()
+
+
+def antialias(rast: torch.Tensor, pos_clip: torch.Tensor,
+              edge_nbrs: torch.Tensor) -> torch.Tensor:
+    """Antialiased coverage (B,H,W) of the ``rasterize`` path: ``antialias``
+    (rasterize.py:975) of the colour clip(id, 0, 1) without precomputed
+    rows. The winner rows' value is ``antialias_rows``; their gradient goes
+    through ``winner_screen_rows`` (K3); K4/K5 run the pairs."""
+    tbl6 = screen_xy_table(pos_clip, edge_nbrs.shape[0])
+    ids, z, rows6, gaux = antialias_rows(rast, tbl6, edge_nbrs)
+    g6 = winner_screen_rows(tbl6, ids, rows6)
+    return antialias_silhouette(ids, z, g6, gaux)
