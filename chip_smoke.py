@@ -18,7 +18,14 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                K4 and K5 equal their plain versions by value, here and on
                every input of tools/aa_cases.py; they are also timed with
                every id 0 (the streaming floor) and with L2 flushed, and
-               the pairs whose ids differ and the valid ones are counted
+               the pairs whose ids differ and the valid ones are counted.
+               K3 agrees with its plain version to rtol 1e-5 on K5's d g6
+               and on a cotangent at every foreground pixel, and within
+               1e-5 of its rows' sums of |ct| (NaN and inf in place) on
+               every input of tools/wsr_cases.py; it is also timed with
+               every cotangent 0 (the id stream and the fill) and with L2
+               flushed, beside index_add_ and index_put_ (library_ms: the
+               faster)
   4. train   — the geometry-stage train step of the bench scene: one
                TetSphere tet_sphere(0.03, radius=0.25) (2,012 faces),
                8 views at 512x512, ellipsoid alpha targets, AdamUniform with
@@ -44,7 +51,8 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                screen with small ones before and behind it
   6b. antialias at the multi-sphere scene's first step — K4 and K5 on
                the silhouette step's inputs (K2b's outputs) and on the depth
-               + normal step's (the shaded winners' rows), as in phase 3
+               + normal step's (the shaded winners' rows), and K3 on K5's
+               d g6 there, as in phase 3
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
@@ -123,10 +131,13 @@ def main():
     from tssplat_torch.tools.aa_cases import aa_cases
     from tssplat_torch.tools.compare_kernels import (aa_bounds,
                                                      multisphere_aa_inputs,
-                                                     time_aa)
+                                                     time_aa, time_wsr,
+                                                     wsr_counts,
+                                                     wsr_library_ms)
     from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
     from tssplat_torch.tools.timing import bound_ms, cuda_ms
     from tssplat_torch.tools.vis_cases import fullscreen_triangles
+    from tssplat_torch.tools.wsr_cases import rows_agree, wsr_cases
     from tssplat_torch.train import (init_train_state, loss_and_grad,
                                      make_train_step, run_steps,
                                      validated_tile_k)
@@ -237,7 +248,6 @@ def main():
     ct = torch.randn((B, RES, RES), generator=gen, device=dev)
     got, errs, times, counts = check_aa("bench scene", inp, ct)
     fg = ids > 0
-    n_fg = int(fg.sum())
     report("aa_forward", "tssplat_torch/csrc/aa_fwd.cu",
            "tssplat_tpu/ops/pallas_raster.py:1171", errs[0], 0.0,
            times["K4_ms"], cuda_ms(lambda: rk.aa_forward_plain(*inp)),
@@ -261,18 +271,36 @@ def main():
                 "K3 differs from plain beyond rtol 1e-5")
         err = max(err, max_err([g3], [w3]))
         tol = max(tol, 1e-5 * scale)
-    idx = (torch.arange(B, device=dev)[:, None, None] * (F + 1)
-           + torch.where(fg, ids.long() - 1, F)).reshape(-1)
-    rows = ct6.permute(0, 2, 3, 1).reshape(-1, 6).contiguous()
-    lib_ms = cuda_ms(lambda: torch.zeros((B * (F + 1), 6), device=dev)
-                     .index_add_(0, idx, rows))
-    n_act = int(((ct6 != 0).any(dim=1) & fg).sum())
+    wsr = wsr_cases(dev)
+    for name, (w_ids, w_ct, w_F) in wsr.items():
+        rows_agree(rk.wsr_table_grad(w_ids, w_ct, w_F), w_ids, w_ct, w_F)
+    print(f"[wsr] K3 agrees with its plain version on the {len(wsr)} inputs "
+          f"of tools/wsr_cases.py", flush=True)
+    del wsr
+
+    def check_wsr(label, w_ids, w_ct, w_F):
+        """K3 on (w_ids, w_ct) within its rows' tolerance of the plain
+        version, timed, its counts and bound printed."""
+        w_err = rows_agree(rk.wsr_table_grad(w_ids, w_ct, w_F), w_ids, w_ct,
+                           w_F)
+        w_times = time_wsr(rk.wsr_table_grad, w_ids, w_ct, w_F)
+        w_counts = wsr_counts(w_ids, w_ct, w_F)
+        print(f"[wsr] {label}: {w_counts['n_fg']} foreground px, "
+              f"{w_counts['n_active']} active, {w_counts['rows_touched']} "
+              f"(view, face) rows; max_err {w_err:.3g}; "
+              + ", ".join(f"{k}={v:.4f}" for k, v in w_times.items())
+              + f"; bound {w_counts['K3_bound'][0]:.4f} ms", flush=True)
+        return w_times, w_counts
+
+    times, counts = check_wsr("bench scene", ids, ct6, F)
+    lib = wsr_library_ms(ids, ct6, F)
+    print(f"[wsr] library: index_add_ {lib['index_add_ms']:.4f} ms, "
+          f"index_put_ (accumulate) {lib['index_put_ms']:.4f} ms", flush=True)
     report("wsr_table_grad", "tssplat_torch/csrc/wsr_grad.cu",
            "tssplat_tpu/ops/pallas_raster.py:908", err, tol,
-           cuda_ms(lambda: rk.wsr_table_grad(ids, ct6, F)),
+           times["K3_ms"],
            cuda_ms(lambda: rk.wsr_table_grad_plain(ids, ct6, F)),
-           bound_ms(4 * P + 24 * n_fg + B * (F + 1) * 24, 6 * n_act),
-           library_ms=lib_ms)
+           counts["K3_bound"], library_ms=min(lib.values()))
 
     # ---- 4. train ----------------------------------------------------------------
     init_fn, update_fn = adam_uniform(
@@ -440,9 +468,10 @@ def main():
 
     # ---- 6b. antialias at the multi-sphere scene's first step ------------
     for name, inp in multisphere_aa_inputs(ms_geo, ms_batch, res, k).items():
-        check_aa(name, inp, torch.randn(inp[0].shape, generator=gen,
-                                        device=dev))
-    del inp
+        dg6 = check_aa(name, inp, torch.randn(inp[0].shape, generator=gen,
+                                              device=dev))[0]
+        check_wsr(name, inp[0], dg6, Fm)
+    del inp, dg6
 
     # ---- 7/8. multi-sphere training: silhouette, then depth + normal ---------
     phases = (

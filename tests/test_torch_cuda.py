@@ -16,6 +16,8 @@ from tssplat_torch.ops.transform import fibonacci_views, transform_pos
 from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
 from tssplat_torch.tools.aa_cases import CASE_NAMES as AA_CASE_NAMES, aa_cases
 from tssplat_torch.tools.vis_cases import CASE_NAMES, capped_cases
+from tssplat_torch.tools.wsr_cases import (CASE_NAMES as WSR_CASE_NAMES,
+                                           rows_agree, wsr_cases)
 from tssplat_torch.train import validated_tile_k
 
 torch.set_num_threads(1)
@@ -64,6 +66,32 @@ def test_table_grad_kernel_matches_plain(scene):
     want = rk.wsr_table_grad_plain(ids, ct, scene["F"])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     assert not got[:, -1].any()
+
+
+@pytest.fixture(scope="module")
+def wsr_corner_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return wsr_cases(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", WSR_CASE_NAMES)
+def test_table_grad_kernel_on_corner_cases(wsr_corner_cases, name):
+    """K3 against its plain version on the inputs that corner its tiles,
+    runs and per-warp sums: each entry within 1e-5 of the sum of |ct| its
+    row adds, NaN and inf where the plain version has them, row F zero
+    (tools/wsr_cases.py rows_agree). Also where the pointers are not
+    16-byte aligned, which takes the scalar loads."""
+    ids, ct, F = wsr_corner_cases[name]
+    rows_agree(rk.wsr_table_grad(ids, ct, F), ids, ct, F)
+    ids1 = torch.empty(ids.numel() + 1, dtype=ids.dtype,
+                       device=ids.device)[1:].view(ids.shape)
+    ct1 = torch.empty(ct.numel() + 1, dtype=ct.dtype,
+                      device=ct.device)[1:].view(ct.shape)
+    ids1.copy_(ids)
+    ct1.copy_(ct)
+    rows_agree(rk.wsr_table_grad(ids1, ct1, F), ids, ct, F)
 
 
 @pytest.mark.cuda

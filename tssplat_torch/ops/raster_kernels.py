@@ -405,14 +405,15 @@ def visibility_capped_boxed_plain(bins: CappedBins,
 def wsr_table_grad(ids: torch.Tensor, ct6: torch.Tensor, F: int
                    ) -> torch.Tensor:
     """Per-face sums of the winner-row cotangents: ids (B,H,W) int32,
-    ct6 (B,6,H,W) f32 -> (B,F+1,6) f32; row F is never written."""
+    ct6 (B,6,H,W) f32 -> (B,F+1,6) f32; a pixel counts where its id is > 0
+    and a cotangent != 0; row F is zero. The C entry zeroes the table."""
     if not _on_cuda(ct6, "wsr_table_grad"):
         return wsr_table_grad_plain(ids, ct6, F)
     B, C, H, W = ct6.shape
     dev = ct6.device
     _check(ids, "ids", torch.int32, (B, H, W), dev)
     _check(ct6, "ct6", torch.float32, (B, 6, H, W))
-    out = torch.zeros((B, F + 1, 6), dtype=torch.float32, device=dev)
+    out = torch.empty((B, F + 1, 6), dtype=torch.float32, device=dev)
     _launch("tss_wsr_grad_launch", _ptr(ids), _ptr(ct6), B, H, W, F,
             _ptr(out))
     wsr_table_grad.launches += 1
@@ -421,24 +422,18 @@ def wsr_table_grad(ids: torch.Tensor, ct6: torch.Tensor, F: int
 
 def wsr_table_grad_plain(ids: torch.Tensor, ct6: torch.Tensor, F: int
                          ) -> torch.Tensor:
-    """Plain version of K3: gather the active pixels, sort them by face and
-    sum each face's run (float64 prefix sums, differenced at run ends)."""
+    """Plain version of K3: each face's active pixels (``id > 0`` and a
+    cotangent != 0) summed into its own row in float64 (``index_add_``),
+    so a NaN or inf reaches that face's row and no other."""
     B, C, H, W = ct6.shape
     rows = ct6.permute(0, 2, 3, 1).reshape(-1, C)        # (B*H*W, 6)
     b = torch.arange(B, device=ct6.device).repeat_interleave(H * W)
     idv = ids.reshape(-1).long()
     active = (idv > 0) & (rows != 0).any(dim=1)
     key = (b * (F + 1) + idv - 1)[active]
-    vals = rows[active].double()
     out = torch.zeros((B * (F + 1), C), dtype=torch.float64,
                       device=ct6.device)
-    if key.numel():
-        key, order = torch.sort(key, stable=True)
-        csum = torch.cumsum(vals[order], dim=0)
-        last = torch.ones_like(key, dtype=torch.bool)
-        last[:-1] = key[1:] != key[:-1]
-        tot = csum[last]
-        out[key[last]] = torch.cat([tot[:1], tot[1:] - tot[:-1]])
+    out.index_add_(0, key, rows[active].double())
     return out.to(ct6.dtype).view(B, F + 1, C)
 
 

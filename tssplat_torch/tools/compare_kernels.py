@@ -1,9 +1,9 @@
 """Kernels of this tree against another commit's, in one process on one
-card: the capped-candidate visibility kernels K2a/K2b (with K1) and the
-antialias kernels K4/K5.
+card: the capped-candidate visibility kernels K2a/K2b (with K1), the
+antialias kernels K4/K5 and the table gradient K3.
 
     python -m tssplat_torch.tools.compare_kernels [--parent DIR]
-        [--kernels vis,aa] [--views 8] [--res 512]
+        [--kernels vis,aa,wsr] [--views 8] [--res 512]
 
 ``vis``: builds ``csrc/vis_capped.cu``, runs it on the 18-sphere scene's
 first-step candidates (tools/synthetic.py multisphere_scene, validated k)
@@ -24,12 +24,24 @@ tree it holds K4 and K5 equal by value to
 their plain versions and times them as they are, with every id 0 (nothing
 to antialias: the streaming floor) and with L2 flushed before each call.
 
-Both print the builds' ptxas resource lines. With ``--parent DIR`` (a
+``wsr``: builds ``csrc/wsr_grad.cu`` and runs K3 on the cotangent each of
+those three steps hands it (K5's d g6 under a seeded cotangent) and on
+``dense6``, a seeded cotangent at every foreground pixel of the bench
+scene. Per input it prints the foreground pixels, the active ones (a
+cotangent != 0), the (view, face) rows they touch, the bound, the fill of
+the table alone (``torch.zeros``) and two one-call PyTorch yardsticks
+(``index_add_``, ``index_put_`` with accumulate); per tree it holds K3 to
+its plain version (``tools/wsr_cases.py rows_agree``) and times it as it
+is, with every cotangent 0 (the id stream alone), with every id 0 and
+with L2 flushed, and for a tree whose C entry does not zero the table
+itself, the kernel alone on a table zeroed beforehand.
+
+All parts print the builds' ptxas resource lines. With ``--parent DIR`` (a
 checkout of another commit of this repository, for example unpacked by
 ``git archive`` into an ignored directory) each part also builds that
 tree's sources and times both trees in the order parent, this, this,
-parent, with the outputs' equality across the trees (for ``vis`` also K1,
-and the parent's K2a and K2b one view at a time). One JSON line per
+parent, with the outputs' equality across the trees (K3's to rtol 1e-5;
+for ``vis`` also K1, and the parent's K2a and K2b one view at a time). One JSON line per
 measurement. Needs a CUDA device and nvcc.
 """
 
@@ -51,6 +63,7 @@ from ..ops.transform import transform_pos
 from ..train import validated_tile_k
 from .synthetic import bench_scene, multisphere_scene
 from .timing import bound_ms, cuda_ms
+from .wsr_cases import rows_agree
 
 
 def build_library(source: Path, tag: str):
@@ -277,16 +290,142 @@ def compare_aa(args, smi, inputs):
                 for a, b in zip(outs["this"], outs["parent"]))}), flush=True)
 
 
+def run_wsr(lib, ids, ct6, F, fills=True, out=None):
+    """K3 of ``lib`` on (ids, ct6), as the wrapper launches it: into a
+    ``torch.empty`` table where the C entry zeroes it (``fills``), else into
+    ``torch.zeros``; or into ``out`` as it is."""
+    B, _, H, W = ct6.shape
+    if out is None:
+        out = (torch.empty if fills else torch.zeros)(
+            (B, F + 1, 6), dtype=torch.float32, device=ct6.device)
+    err = entry(lib, "tss_wsr_grad_launch")(
+        ids.data_ptr(), ct6.data_ptr(), B, H, W, F, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA error {err} at launch")
+    return out
+
+
+def time_wsr(fn, ids, ct6, F) -> dict:
+    """K3 ``fn(ids, ct6, F)`` timed as it is, with every cotangent 0 (no
+    pixel counts: the id stream and the fill), with every id 0 (nothing is
+    foreground) and with L2 flushed before each call."""
+    zero_ct, zero_ids = torch.zeros_like(ct6), torch.zeros_like(ids)
+    return {"K3_ms": cuda_ms(lambda: fn(ids, ct6, F)),
+            "K3_zero_ct_ms": cuda_ms(lambda: fn(ids, zero_ct, F)),
+            "K3_zero_ids_ms": cuda_ms(lambda: fn(zero_ids, ct6, F)),
+            "K3_flushed_ms": cuda_ms(lambda: fn(ids, ct6, F), flush=True)}
+
+
+def wsr_counts(ids, ct6, F) -> dict:
+    """What K3 must read and write on (ids, ct6): every id (4 B/px), the
+    six cotangents of each foreground pixel (24 B), the table (24 B a
+    row); one add per channel of each active pixel. Also the active
+    pixels' distinct (view, face) rows."""
+    B = ids.shape[0]
+    fg = ids > 0
+    act = fg & (ct6 != 0).any(dim=1)
+    key = (torch.arange(B, device=ids.device)[:, None, None] * (F + 1)
+           + ids.long() - 1)[act]
+    n_fg, n_act = int(fg.sum()), int(act.sum())
+    return {"pixels": ids.numel(), "n_fg": n_fg, "n_active": n_act,
+            "rows_touched": int(torch.unique(key).numel()),
+            "K3_bound": bound_ms(4 * ids.numel() + 24 * n_fg
+                                 + 24 * B * (F + 1), 6 * n_act)}
+
+
+def wsr_library_ms(ids, ct6, F) -> dict:
+    """One-call PyTorch yardsticks of K3 on (ids, ct6): ``index_add_`` of
+    every pixel's row (background into row F, active or not), and
+    ``index_put_`` with accumulate of the active pixels' rows."""
+    B, C, H, W = ct6.shape
+    dev = ct6.device
+    fg = ids > 0
+    idx = (torch.arange(B, device=dev)[:, None, None] * (F + 1)
+           + torch.where(fg, ids.long() - 1, F)).reshape(-1)
+    rows = ct6.permute(0, 2, 3, 1).reshape(-1, C).contiguous()
+    act = (fg & (ct6 != 0).any(dim=1)).reshape(-1)
+    a_idx, a_rows = idx[act], rows[act]
+    return {
+        "index_add_ms": cuda_ms(lambda: torch.zeros(
+            (B * (F + 1), C), device=dev).index_add_(0, idx, rows)),
+        "index_put_ms": cuda_ms(lambda: torch.zeros(
+            (B * (F + 1), C), device=dev).index_put_(
+                (a_idx,), a_rows, accumulate=True))}
+
+
+def wsr_inputs(bench_inp, bench_F, ms_inputs, ms_F) -> dict:
+    """name -> (ids, ct6, F): K3's inputs on the three main-path steps (K5's
+    d g6 under a seeded cotangent, as the steps' backward hands it over)
+    and ``dense6``, a seeded cotangent at every foreground pixel of the
+    bench scene."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name, inp, F in (("bench", bench_inp, bench_F),
+                         *((n, i, ms_F) for n, i in ms_inputs.items())):
+        ct = torch.randn(inp[0].shape, generator=gen, device="cuda")
+        out[name] = (inp[0], rk.aa_backward(*inp, ct), F)
+    ids = bench_inp[0]
+    out["dense6"] = (ids, torch.randn(
+        (ids.shape[0], 6) + tuple(ids.shape[1:]), generator=gen,
+        device="cuda") * (ids > 0)[:, None], bench_F)
+    return out
+
+
+def compare_wsr(args, smi, inputs):
+    """The ``wsr`` part: counts, bound, fill and library times per input,
+    then each tree's K3 against the plain version and timed."""
+    trees = {"this": build.CSRC}
+    if args.parent is not None:
+        trees["parent"] = args.parent / "tssplat_torch" / "csrc"
+    libs, fills, reports = {}, {}, {}
+    for tree, src in trees.items():
+        libs[tree], reports[tree] = build_library(src / "wsr_grad.cu",
+                                                  f"wsr_grad_{tree}")
+        fills[tree] = "cudaMemsetAsync" in (src / "wsr_grad.cu").read_text()
+    print(json.dumps({"part": "wsr", "card": smi, "ptxas": reports,
+                      "c_entry_zeroes_table": fills}), flush=True)
+    order = ["parent", "this", "this", "parent"] if len(trees) > 1 \
+        else ["this", "this"]
+    for name, (ids, ct6, F) in inputs.items():
+        B = ids.shape[0]
+        print(json.dumps({
+            "inputs": name, "F": F, **wsr_counts(ids, ct6, F),
+            "fill_ms": cuda_ms(lambda: torch.zeros(
+                (B, F + 1, 6), dtype=torch.float32, device="cuda")),
+            **wsr_library_ms(ids, ct6, F)}), flush=True)
+        outs = {}
+        for tree in order:
+            lib, fl = libs[tree], fills[tree]
+            outs[tree] = run_wsr(lib, ids, ct6, F, fl)
+            rec = {"inputs": name, "tree": tree, "card": smi,
+                   "max_abs_err_vs_plain": rows_agree(outs[tree], ids, ct6,
+                                                      F),
+                   **time_wsr(lambda *a: run_wsr(lib, *a, fills=fl), ids,
+                              ct6, F)}
+            if not fl:
+                zeroed = torch.zeros((B, F + 1, 6), device="cuda")
+                rec["K3_kernel_only_ms"] = cuda_ms(
+                    lambda: run_wsr(lib, ids, ct6, F, out=zeroed))
+            print(json.dumps(rec), flush=True)
+        if len(trees) > 1:
+            a, b = outs["this"], outs["parent"]
+            print(json.dumps({"inputs": name, "close_across_trees": bool(
+                torch.allclose(a, b, rtol=1e-5,
+                               atol=1e-6 * float(b.abs().max())))}),
+                  flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
-    ap.add_argument("--kernels", default="vis,aa",
-                    help="comma-separated parts: vis, aa")
+    ap.add_argument("--kernels", default="vis,aa,wsr",
+                    help="comma-separated parts: vis, aa, wsr")
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--res", type=int, default=512)
     args = ap.parse_args(argv)
     parts = set(args.kernels.split(","))
-    if not parts <= {"vis", "aa"}:
+    if not parts <= {"vis", "aa", "wsr"}:
         raise SystemExit(f"unknown parts in --kernels {args.kernels}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels needs a CUDA device")
@@ -306,11 +445,16 @@ def main(argv=None):
     with torch.no_grad():
         pos1 = transform_pos(batch1["mvp"],
                              geo1.tet_v[geo1.statics.corner_vid])
+    inputs = {"bench": rk.visibility(
+        bin_faces(pos1, geo1.statics.edge_nbrs, res), res)}
+    inputs.update(multisphere_aa_inputs(geo, batch, res, k))
     if "aa" in parts:
-        inputs = {"bench": rk.visibility(
-            bin_faces(pos1, geo1.statics.edge_nbrs, res), res)}
-        inputs.update(multisphere_aa_inputs(geo, batch, res, k))
         compare_aa(args, smi, inputs)
+    if "wsr" in parts:
+        ms = {n: v for n, v in inputs.items() if n != "bench"}
+        compare_wsr(args, smi, wsr_inputs(
+            inputs["bench"], int(geo1.statics.surface_fid.shape[0]), ms,
+            int(st.surface_fid.shape[0])))
     if "vis" in parts:
         compare_vis(args, smi, res, k, st, pos, pos1,
                     geo1.statics.edge_nbrs)
