@@ -62,16 +62,41 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
   9. multi-sphere reference — 2 of the views (capped for both table widths
                at B = 2): one silhouette step and one depth + normal step at
                iteration 1001 on the card against the CPU
-The launch counts are zeroed just before each main-path phase (4, 7, 8)
-and read just after it. Then one JSON line of per-kernel results (launches
-of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a from 8), the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+ 10. driver  — `python -m tssplat_torch.train --config configs/gso.yaml`
+               through tssplat_torch.train.main, in process, at the config's
+               120 views of 512²: the ellipsoid's dataset written by the
+               port's write_synthetic_dataset into a temporary directory, the
+               18 spheres of multisphere_scene as key points. (a) gso.yaml as
+               shipped (AdamUniform lr 0.2, batch 120, view_chunk auto = 8)
+               for 24 iterations, logging every 4, exporting and
+               checkpointing every 12: the exports of iterations 0 and 12 and
+               final/ (with final_vtx.npy / final_elem.npy), no n_drop
+               warning, img_loss falling, K2b / K3 / K4 / K5 launched 15 / 15
+               / 30 / 15 times an iteration (K4 again in each chunk's
+               recomputation, visibility never); (b) the same unchunked
+               (view_chunk=0) for 8 iterations: its iteration-0 img_loss
+               that of (a) (rtol 1e-5 of the logged value), each kernel once
+               an iteration; (c) the normal loss (K2a, 15 times an
+               iteration) and the depth loss from iteration 4 with Adam lr
+               2e-3 for 12 iterations: the step rebuilt there, finite
+               losses. (b) and (c) load (a)'s
+               sphere meshes (init path B). One line per run: the driver's
+               it/s, peak device memory, launches an iteration, seconds
+The launch counts are zeroed just before each main-path phase (4, 7, 8,
+10a-c) and read just after it. Then one JSON line of per-kernel results
+(launches of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a from 8),
+the nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
 import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -544,12 +569,159 @@ def main():
               f"max {scale:.3g} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
 
+    del ms_geo, ms_batch, two, two_cpu
+    driver_phase(smi)
+
     require(len(results) == len(rk.KERNELS), "a kernel is missing a report")
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def driver_phase(smi, views=120, res=512, device=None):
+    """Phase 10: configs/gso.yaml through tssplat_torch.train.main at
+    ``views`` views of res² (120 of 512², see the module docstring) on
+    ``device`` (the card unless given)."""
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.tools.synthetic import (write_multisphere_key_points,
+                                               write_synthetic_dataset)
+    import tssplat_torch.train as tt
+
+    gso = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                       "gso.yaml")
+    chunks = views // 8
+    with tempfile.TemporaryDirectory(prefix="tss_driver_") as tmp:
+        t0 = time.perf_counter()
+        v, f = icosphere(subdivisions=3)
+        write_synthetic_dataset(os.path.join(tmp, "img"),
+                                v * [0.30, 0.24, 0.18], f, n_views=views,
+                                resolution=res, device=device)
+        write_multisphere_key_points(os.path.join(tmp, "kp.json"), 18)
+        print(f"[driver] dataset of {views} views at {res}x{res} (alpha, "
+              f"depth, normal) written in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        base = [f"data.dataset_config.image_root={tmp}/img",
+                f"data.batch_size={views}",                  # gso.yaml's 120
+                f"geometry.key_points_file_path={tmp}/kp.json",
+                f"geometry.tetwild_cache_folder={tmp}/cache"]
+
+        def run(label, iters, want, *over):
+            """main() on gso.yaml with ``over`` for ``iters`` iterations;
+            requires finite losses, no warning and the launch counts
+            ``want`` (every other kernel 0); returns the logged (iteration,
+            img_loss) pairs, the output directory and the printed text."""
+            out = f"{tmp}/{label}"
+            argv = ["--config", gso, *base, f"output_path={out}",
+                    f"data.total_num_iter={iters}", *over]
+            tee = _Tee(sys.stdout)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                state, _ = tt.main(argv, device=device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = rk.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            text = "".join(tee.text)
+            logged = [(int(i), float(x)) for i, x in re.findall(
+                r"iter=\s*(\d+), img_loss=([0-9.]+)", text)]
+            ips = float(re.search(r"iters/sec: ([0-9.]+)", text).group(1))
+            meter = re.findall(r"\[([0-9.]+) iters/s", text)
+            print(f"[driver] {label}: {ips:.3f} it/s (the driver's count, "
+                  f"all {iters} iterations and their exports); "
+                  f"{meter[-1] if meter else 'n/a'} it/s from iteration 1 to "
+                  f"the last log (the log's meter); {views}x{res}^2; peak "
+                  f"{peak:.2f} GiB; launches an iteration "
+                  f"{json.dumps({k: n / iters for k, n in counts.items()})}"
+                  f"; {secs:.1f} s; img_loss {logged[0][1]} -> "
+                  f"{logged[-1][1]}; on {smi}", flush=True)
+            require("WARNING" not in text, f"{label}: a warning: {text}")
+            require(all(math.isfinite(x) for _, x in logged)
+                    and bool(torch.isfinite(state.params).all()),
+                    f"{label}: non-finite loss or parameters {logged}")
+            full = dict.fromkeys(counts, 0)
+            full.update(want)
+            require(counts == full, f"{label}: launches {counts} over "
+                    f"{iters} iterations, expected {full}")
+            return logged, out, text
+
+        # (a) gso.yaml as shipped, 24 iterations: per chunk one K2b, K3
+        # and K5, and K4 twice (forward and recomputation)
+        log_a, out, text = run(
+            "a_chunked", 24, dict(visibility_capped=24 * chunks,
+                                  wsr_table_grad=24 * chunks,
+                                  aa_forward=48 * chunks,
+                                  aa_backward=24 * chunks),
+            "log_every=4", "export_every=12", "checkpoint_every=12")
+        require(f"view microbatching: {chunks} chunks of 8 views" in text,
+                "(a): view_chunk auto did not pick chunks of 8")
+        require(log_a[-1][1] < log_a[0][1],
+                f"(a): img_loss did not fall {log_a}")
+        final = set(os.listdir(f"{out}/final"))
+        need = {"final.veg", "final_surface_mesh.obj", "final_vtx.npy",
+                "final_elem.npy", "spheres_vtx_idx.json",
+                "spheres_elem_idx.json"} | {
+            f"final_sp{i}_{k}.npy" for i in range(18) for k in ("vtx", "elem")}
+        require(need <= final, f"(a): final/ lacks {sorted(need - final)}")
+        for path in ("mesh00000/00000.veg", "mesh00012/00012.veg",
+                     "ckpt/step_00000012.pt"):
+            require(os.path.exists(f"{out}/{path}"), f"(a): no {path}")
+
+        # (b) unchunked, 8 iterations, on (a)'s sphere meshes
+        log_b, _, text = run(
+            "b_unchunked", 8, dict(visibility_capped=8, wsr_table_grad=8,
+                                   aa_forward=8, aa_backward=8),
+            "view_chunk=0", "log_every=4", "export_every=12",
+            "geometry.load_precomputed_tetwild_mesh=true")
+        require("view microbatching" not in text, "(b): chunked")
+        require(math.isclose(log_b[0][1], log_a[0][1], rel_tol=1e-5),
+                f"(b): iteration-0 img_loss {log_b[0][1]} != (a)'s "
+                f"{log_a[0][1]}")
+
+        # (c) the normal loss throughout (K2a: the shaded path), the depth
+        # loss from iteration 4 (the step rebuilt then), Adam lr 2e-3, 12
+        # iterations
+        built = []
+        make_step = tt.make_train_step
+
+        def spy(*args, **kw):
+            built.append(kw["fit_depth"])
+            return make_step(*args, **kw)
+
+        tt.make_train_step = spy
+        try:
+            log_c, _, _ = run(
+                "c_depth_normal", 12, dict(visibility_capped_ids=12 * chunks,
+                                           wsr_table_grad=12 * chunks,
+                                           aa_forward=24 * chunks,
+                                           aa_backward=12 * chunks),
+                "fit_depth=true", "fit_depth_starting_iter=3",
+                "fit_normal=true", "optimizer.type=adam", "optimizer.lr=2e-3",
+                "resume=false", "log_every=1", "export_every=12",
+                "geometry.load_precomputed_tetwild_mesh=true")
+        finally:
+            tt.make_train_step = make_step
+        require(built == [False, True], f"(c): steps built {built}")
+        require(len(log_c) == 12, f"(c): {len(log_c)} log lines")
 
 
 if __name__ == "__main__":

@@ -284,3 +284,54 @@ def test_capped_kernels_on_the_bench_sphere():
     for a, b in zip(got, rk.visibility(bin_faces(pos, st.edge_nbrs, res),
                                        res)):
         assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_train_on_the_card_matches_cpu(tmp_path, capsys):
+    """train() with the default device (the card) on a 2-view 128² dataset
+    of the ellipsoid for 3 iterations, one sphere at r 0.24: the logged
+    img_loss of every iteration and the best loss within rtol 1e-5 of the
+    same run with device="cpu" (the plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import re
+
+    import numpy as np
+
+    from tssplat_torch.config import ConfigDict
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.tools.synthetic import write_synthetic_dataset
+    from tssplat_torch.train import train
+
+    v, f = icosphere(subdivisions=3)
+    write_synthetic_dataset(str(tmp_path / "img"),
+                            v * np.asarray([0.30, 0.24, 0.18]), f, n_views=2,
+                            resolution=128)
+    (tmp_path / "kp.json").write_text(json.dumps({"pt": [[0, 0, 0]],
+                                                  "r": [0.24]}))
+
+    def run(out, device):
+        cfg = ConfigDict({
+            "geometry_type": "TetMeshMultiSphereGeometry",
+            "geometry": {"key_points_file_path": str(tmp_path / "kp.json"),
+                         "tetwild_cache_folder": str(tmp_path / out)},
+            "dataloader_type": "MistubaImgDataLoader",
+            "data": {"dataset_config": {"image_root": str(tmp_path / "img")},
+                     "batch_size": 2, "total_num_iter": 3},
+            "optimizer": {"lr": 0.2, "grad_limit": True,
+                          "grad_limit_values": [0.01, 0.01],
+                          "grad_limit_iters": [3]},
+            "output_path": str(tmp_path / out), "total_num_iter": 3,
+            "log_every": 1, "export_every": 100})
+        state, _ = train(cfg, device=device)
+        logged = [float(x) for x in re.findall(r"img_loss=([0-9.]+)",
+                                               capsys.readouterr().out)]
+        return state, logged
+
+    st_gpu, log_gpu = run("gpu", None)
+    st_cpu, log_cpu = run("cpu", "cpu")
+    assert st_gpu.params.device.type == "cuda" and len(log_gpu) == 3
+    np.testing.assert_allclose(log_gpu, log_cpu, rtol=1e-5)
+    np.testing.assert_allclose(float(st_gpu.best_loss),
+                               float(st_cpu.best_loss), rtol=1e-5)

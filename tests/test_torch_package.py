@@ -29,12 +29,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     """Every module of the port, imported in a fresh interpreter, loads no
-    jax and no tssplat_tpu module."""
+    jax and no tssplat_tpu module; the driver's modules among them."""
     code = (
         "import sys, pkgutil, importlib, tssplat_torch\n"
         "for m in pkgutil.walk_packages(tssplat_torch.__path__, "
         "'tssplat_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "need = ['tssplat_torch.train', 'tssplat_torch.config', "
+        "'tssplat_torch.data', 'tssplat_torch.data.loader', "
+        "'tssplat_torch.utils', 'tssplat_torch.utils.checkpoint', "
+        "'tssplat_torch.tools.synthetic']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tssplat_tpu')]\n"
         "print(len([m for m in sys.modules if m.startswith('tssplat_torch')]))\n"
@@ -43,7 +48,7 @@ def test_import_pulls_in_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15          # the whole package loaded
+    assert int(res.stdout.strip()) >= 22          # the whole package loaded
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):

@@ -6,12 +6,16 @@ reference. This package imports neither JAX nor ``tssplat_tpu``; it keeps
 its own copies of the host numpy code it needs.
 
 Layers (mirroring ``tssplat_tpu``):
+  train     — the driver (``python -m tssplat_torch.train --config ...``)
+              and the geometry-stage train step, view-chunked or whole
+  config    — YAML configs, CLI overrides, registries
+  data      — multi-view datasets and the view-batch loader
+  utils     — checkpoints, the throughput meter
   mesh      — tet-mesh container, surface topology, sphere meshing (numpy)
   ops       — energy, clip transform, binning, visibility/antialias kernels
   geometry  — optimizable tet geometry state
-  render    — multi-view silhouette render
-  optim     — AdamUniform + cosine LR
-  train     — geometry-stage train step
+  render    — multi-view silhouette, depth and normal render
+  optim     — AdamUniform + cosine LR, Adam + cosine decay
   kernels   — nvcc build of csrc/*.cu, loaded with ctypes
   convert   — JAX-side arrays -> the port's tensors
 """

@@ -10,6 +10,8 @@ thing from the same inputs:
   tet_v              (N,3) f32 vertex positions
   adam_state         AdamUniformState (count, g1, g2, limit_ptr, cc)
   optax_adam_state   AdamState (count, mu, nu) of ``optax.adam``
+  train_state        TrainState (params, either optimizer's state, best
+                     loss / iteration / params)
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .geometry.tet_geometry import GeometryStatics
 from .ops.energy import EnergyOps, energy_ops_from_arrays
 from .optim.adam import AdamState
 from .optim.adam_uniform import AdamUniformState
+from .train import TrainState
 
 
 def _i64(a, dev):
@@ -81,3 +84,16 @@ def optax_adam_state(state, device: DeviceLike = None) -> AdamState:
     adam_st = state[0]
     return AdamState(count=_i32(adam_st.count, dev), mu=_f32(adam_st.mu, dev),
                      nu=_f32(adam_st.nu, dev))
+
+
+def train_state(state, device: DeviceLike = None) -> TrainState:
+    """A JAX geometry-stage ``TrainState`` (e.g. from ``jax.device_get``)
+    whose opt_state is AdamUniform's or ``optax.adam``'s."""
+    dev = resolve_device(device)
+    opt = state.opt_state
+    opt = adam_state(opt, dev) if hasattr(opt, "g1") \
+        else optax_adam_state(opt, dev)
+    return TrainState(params=_f32(state.params, dev), opt_state=opt,
+                      best_loss=_f32(state.best_loss, dev),
+                      best_iter=_i32(state.best_iter, dev),
+                      best_params=_f32(state.best_params, dev))

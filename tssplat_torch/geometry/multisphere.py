@@ -28,7 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..config import parse_structured
+from ..config import GEOMETRIES, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..mesh.spheres import tet_sphere
 from ..mesh.tetmesh import TetMesh
@@ -73,6 +73,7 @@ def _write_json(path: str, obj) -> None:
         json.dump(obj, f)
 
 
+@GEOMETRIES.register("TetMeshMultiSphereGeometry")
 class TetMeshMultiSphereGeometry(TetMeshGeometry):
     """Disjoint union of tet spheres from key points (paths A, B, C above),
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
@@ -150,10 +151,11 @@ class TetMeshMultiSphereGeometry(TetMeshGeometry):
     def num_spheres(self) -> int:
         return len(self.all_spheres_vtx_idx)
 
-    def export(self, path: str, filename: str) -> None:
-        """The tet mesh, plus per sphere its vertices and local elements as
-        npy, and the index JSONs that init path C reads."""
-        tet_v = super().export(path, filename)
+    def export(self, path: str, filename: str, **kwargs) -> None:
+        """The tet mesh (``kwargs`` go to ``TetMesh.save``), plus per sphere
+        its vertices and local elements as npy, and the index JSONs that
+        init path C reads."""
+        tet_v = super().export(path, filename, **kwargs)
         for i, vid in enumerate(self.all_spheres_vtx_idx):
             np.save(os.path.join(path, f"{filename}_sp{i}_vtx.npy"),
                     tet_v[np.asarray(vid, np.int64), :])

@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import parse_structured
+from ..config import GEOMETRIES, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..mesh.tetmesh import TetMesh
 from ..ops.energy import (EnergyOps, build_energy_ops, smooth_barrier_energy,
@@ -57,6 +57,24 @@ def geometry_forward(tet_v: torch.Tensor, geom: GeometryStatics,
                                energy=e)
 
 
+def permute_surface_vertices(tet_v: torch.Tensor, surface_vid: torch.Tensor,
+                             generator: torch.Generator,
+                             dev: float) -> torch.Tensor:
+    """Uniform noise in [-dev/2, dev/2) added to the surface vertices,
+    outside the gradient path (``permute_surface_vertices``,
+    tet_geometry.py:70; reference geometry/tetmesh_geometry.py:176-182).
+
+    The noise is drawn on the CPU from ``generator`` (a CPU
+    ``torch.Generator``) and then moved to tet_v's device, so the CPU and
+    the card perturb alike for one seed. JAX's ``jax.random`` bits cannot
+    be reproduced here: this function is held to its contract (only surface
+    vertices move, each coordinate by less than dev/2, the same noise for
+    the same seed), not to the JAX package's values."""
+    noise = torch.rand((surface_vid.shape[0], 3), generator=generator,
+                       dtype=tet_v.dtype) * dev - dev * 0.5
+    return tet_v.index_add(0, surface_vid, noise.to(tet_v.device))
+
+
 def compute_vertex_normals(v_pos: torch.Tensor,
                            t_pos_idx: torch.Tensor) -> torch.Tensor:
     """Area-weighted vertex normals (``compute_vertex_normals``,
@@ -89,6 +107,26 @@ def statics_to(statics: GeometryStatics, device: DeviceLike
         energy=move(out.energy))
 
 
+class LinearInterpolateScheduler:
+    """Fires every ``freq`` iterations from ``start_iter`` on with a
+    linearly interpolated value, None otherwise (``LinearInterpolate
+    Scheduler``, tet_geometry.py:142; reference trainer.py:18-31, including
+    the unclamped extrapolation past end_iter)."""
+
+    def __init__(self, start_iter, end_iter, start_val, end_val, freq):
+        self.start_iter = start_iter
+        self.end_iter = end_iter
+        self.start_val = start_val
+        self.end_val = end_val
+        self.freq = freq
+
+    def __call__(self, it: int):
+        if it < self.start_iter or it % self.freq != 0 or it == 0:
+            return None
+        p = (it - self.start_iter) / (self.end_iter - self.start_iter)
+        return self.start_val * (1 - p) + self.end_val * p
+
+
 @dataclass
 class SmoothBarrierParam:
     smooth_eng_coeff: float = 2e-4
@@ -97,6 +135,7 @@ class SmoothBarrierParam:
     laplacian_weighting: str = "uniform"
 
 
+@GEOMETRIES.register("TetMeshGeometry")
 class TetMeshGeometry:
     """Host-side geometry owner: builds statics on ``device`` and holds the
     current ``tet_v`` (reference geometry/tetmesh_geometry.py:118-199)."""
@@ -166,9 +205,10 @@ class TetMeshGeometry:
         self.tet_v = torch.as_tensor(tet_v, dtype=torch.float32,
                                      device=self.device)
 
-    def export(self, path: str, filename: str) -> np.ndarray:
-        """Save the tet mesh at the current tet_v; returns tet_v as f64."""
+    def export(self, path: str, filename: str, **kwargs) -> np.ndarray:
+        """Save the tet mesh at the current tet_v (``kwargs`` go to
+        ``TetMesh.save``); returns tet_v as f64."""
         tet_v = self.tet_v.detach().cpu().double().numpy()
         self.tetmesh.update_vtx_pos(tet_v)
-        self.tetmesh.save(path, filename)
+        self.tetmesh.save(path, filename, **kwargs)
         return tet_v

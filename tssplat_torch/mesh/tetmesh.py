@@ -87,11 +87,15 @@ class TetMesh:
         return self.vtx[self.surface_vid], self.surface_fid
 
     def save(self, path: str, filename: str = "tet_mesh",
-             save_surface_mesh: bool = True) -> None:
-        """Persist as .veg (+ surface .obj)."""
+             save_surface_mesh: bool = True, save_npy: bool = False) -> None:
+        """Persist as .veg (+ surface .obj, + ``_vtx.npy`` / ``_elem.npy``):
+        the reference's artifact set (geometry/tetrahedron_mesh.py:82-91)."""
         os.makedirs(path, exist_ok=True)
         save_veg(os.path.join(path, filename + ".veg"), self.vtx, self.elem,
                  E=self.E, nu=self.nu, density=self.density)
         if save_surface_mesh:
             sv, sf = self.surface_mesh()
             save_obj(os.path.join(path, filename + "_surface_mesh.obj"), sv, sf)
+        if save_npy:
+            np.save(os.path.join(path, filename + "_vtx.npy"), self.vtx)
+            np.save(os.path.join(path, filename + "_elem.npy"), self.elem)

@@ -1,20 +1,25 @@
 """Differentiable rasterization (port of ``tssplat_tpu/ops/rasterize.py``).
 
-  rasterize_silhouette_with_rows(pos_clip, edge_nbrs, (H, W), k)
-      -> ids+1 (B,H,W) int32, z (B,H,W), g6 (B,6,H,W) differentiable
-         winner screen rows, gaux (B,4,H,W), n_drop (B,)
+  silhouette_visibility(pos_clip, edge_nbrs, (H, W), k)
+      -> ids+1 (B,H,W) int32, z (B,H,W), g6 values (B,6,H,W), gaux
+         (B,4,H,W), n_drop (B,), without gradient
+  rasterize_silhouette_with_rows(pos_clip, edge_nbrs, (H, W), k, vis)
+      -> the same with g6 the differentiable winner screen rows
   antialias_silhouette(ids, z, g6, gaux) -> (B,H,W) coverage; the sole
       source of coverage gradients (reference renderers/mesh_rasterizer.py:
       106-108, nvdiffrast dr.antialias semantics)
-  rasterize(pos_clip, (H, W), k) -> rast (B,H,W,4) = (u, v, z/w, id+1),
-      n_drop (B,); perspective-correct and differentiable in u, v, z
+  visibility_ids(pos_clip, (H, W), k) -> ids+1, n_drop, without gradient
+  rasterize(pos_clip, (H, W), k, vis) -> rast (B,H,W,4) = (u, v, z/w,
+      id+1), n_drop (B,); perspective-correct and differentiable in u, v, z
   interpolate(attr, rast) -> (B,H,W,C) barycentric attributes
   antialias(rast, pos_clip, edge_nbrs) -> (B,H,W) coverage antialias of
       the ``rasterize`` path
   antialias_rows(rast, tbl6, edge_nbrs) -> K4/K5's inputs (ids, z, g6,
       gaux) on that path, without gradient
 
-Visibility (binning + K1, K2a or K2b) runs without gradients. Which
+Visibility (binning + K1, K2a or K2b) runs without gradients, and can be
+run beforehand and handed in as ``vis`` (the view-chunked step keeps it
+out of the recomputed part). Which
 binning: the capped 8x128 layout (K2a without rows, K2b with) in exactly
 the scenes where the JAX package takes it (``binning.uses_capped_layout``),
 the uncapped 16x16 lists of K1 everywhere else. The winner rows carry their
@@ -156,15 +161,14 @@ def winner_screen_rows(tbl6: torch.Tensor, ids: torch.Tensor,
     return _WinnerRows.apply(tbl6, ids, g6_kernel)
 
 
-def rasterize_silhouette_with_rows(pos_clip: torch.Tensor,
-                                   edge_nbrs: torch.Tensor,
-                                   resolution: Tuple[int, int],
-                                   k: Optional[int] = None):
-    """Silhouette visibility + the winner's differentiable AA rows
-    (``rasterize_silhouette_with_rows``, rasterize.py:794, kernel path):
-    K2b over the capped layout where the JAX package caps (``k`` per tile,
-    default ``default_tile_capacity``), else K1. Returns (ids, z, g6, gaux,
-    n_drop)."""
+def silhouette_visibility(pos_clip: torch.Tensor, edge_nbrs: torch.Tensor,
+                          resolution: Tuple[int, int],
+                          k: Optional[int] = None):
+    """Silhouette visibility without gradient: binning + K2b over the
+    capped layout where the JAX package caps (``k`` per tile, default
+    ``default_tile_capacity``), else K1. Returns (ids, z, the kernel's
+    winner rows g6, gaux, n_drop), which ``rasterize_silhouette_with_rows``
+    takes as ``vis``."""
     B, F = pos_clip.shape[0], edge_nbrs.shape[0]
     H, W = resolution
     pos = pos_clip.detach()
@@ -176,8 +180,22 @@ def rasterize_silhouette_with_rows(pos_clip: torch.Tensor,
         else:
             bins = bin_faces(pos, edge_nbrs, resolution)
             ids, z, g6k, gaux = rk.visibility(bins, resolution)
-    g6 = winner_screen_rows(screen_xy_table(pos_clip, F), ids, g6k)
-    return ids, z, g6, gaux, bins.n_drop
+    return ids, z, g6k, gaux, bins.n_drop
+
+
+def rasterize_silhouette_with_rows(pos_clip: torch.Tensor,
+                                   edge_nbrs: torch.Tensor,
+                                   resolution: Tuple[int, int],
+                                   k: Optional[int] = None, vis=None):
+    """Silhouette visibility + the winner's differentiable AA rows
+    (``rasterize_silhouette_with_rows``, rasterize.py:794, kernel path):
+    ``silhouette_visibility``, or its outputs ``vis`` computed beforehand,
+    and the rows' gradient path. Returns (ids, z, g6, gaux, n_drop)."""
+    ids, z, g6k, gaux, n_drop = vis if vis is not None else \
+        silhouette_visibility(pos_clip, edge_nbrs, resolution, k)
+    g6 = winner_screen_rows(screen_xy_table(pos_clip, edge_nbrs.shape[0]),
+                            ids, g6k)
+    return ids, z, g6, gaux, n_drop
 
 
 def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
@@ -215,12 +233,12 @@ def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
                        dim=-1)
 
 
-def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
-              k: Optional[int] = None):
-    """Full rasterization (``rasterize``, rasterize.py:719): visibility by
-    K2a over the capped layout where the JAX package caps (table R = 11),
-    else by K1 without winner rows; then the differentiable shading of the
-    winners. Returns (rast (B,H,W,4) = (u, v, z/w, id+1), n_drop (B,))."""
+def visibility_ids(pos_clip: torch.Tensor, resolution: Tuple[int, int],
+                   k: Optional[int] = None):
+    """Visibility without winner rows and without gradient: binning + K2a
+    over the capped layout where the JAX package caps (table R = 11), else
+    K1 without rows. Returns (ids, n_drop), which ``rasterize`` takes as
+    ``vis``."""
     B, F = pos_clip.shape[0], pos_clip.shape[1] // 3
     H, W = resolution
     pos = pos_clip.detach()
@@ -232,7 +250,18 @@ def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
         else:
             bins = bin_faces(pos, None, resolution)
             ids, _ = rk.visibility(bins, resolution, emit_g=False)
-    return _shade_rast(pos_clip, ids, resolution), bins.n_drop
+    return ids, bins.n_drop
+
+
+def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
+              k: Optional[int] = None, vis=None):
+    """Full rasterization (``rasterize``, rasterize.py:719): visibility
+    (``visibility_ids``, or its outputs ``vis`` computed beforehand), then
+    the differentiable shading of the winners. Returns (rast (B,H,W,4) =
+    (u, v, z/w, id+1), n_drop (B,))."""
+    ids, n_drop = vis if vis is not None else \
+        visibility_ids(pos_clip, resolution, k)
+    return _shade_rast(pos_clip, ids, resolution), n_drop
 
 
 def interpolate(attr: torch.Tensor, rast: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,8 @@ import torch
 from ..geometry.tet_geometry import (GeometryStatics, compute_vertex_normals,
                                      geometry_forward)
 from ..ops.rasterize import (antialias, antialias_silhouette, interpolate,
-                             rasterize, rasterize_silhouette_with_rows)
+                             rasterize, rasterize_silhouette_with_rows,
+                             silhouette_visibility, visibility_ids)
 from ..ops.transform import transform_pos
 
 
@@ -37,16 +38,35 @@ class RenderOutput(NamedTuple):
     n_drop: Optional[torch.Tensor] = None
 
 
+def render_visibility(tet_v: torch.Tensor, geom: GeometryStatics,
+                      mvp: torch.Tensor, resolution: int, *, shaded: bool,
+                      is_ortho: bool = False, tile_k: Optional[int] = None):
+    """The visibility pass of ``render_views`` alone, without gradient:
+    binning and the visibility kernel (K2b or K1 with winner rows for the
+    silhouette; K2a or K1 without rows when ``shaded``, i.e. with
+    fit_depth or fit_normal). ``render_views(..., vis=...)`` takes what it
+    returns instead of running the pass itself."""
+    with torch.no_grad():
+        pos_clip = transform_pos(mvp, tet_v.detach()[geom.corner_vid],
+                                 is_ortho=is_ortho)
+    res = (int(resolution), int(resolution))
+    if shaded:
+        return visibility_ids(pos_clip, res, tile_k)
+    return silhouette_visibility(pos_clip, geom.edge_nbrs, res, tile_k)
+
+
 def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
                  mvp: torch.Tensor, it: int, resolution: int, *,
                  campos: Optional[torch.Tensor] = None,
                  fit_normal: bool = False, fit_depth: bool = False,
                  is_ortho: bool = False, normal_flip_z: bool = True,
-                 tile_k: Optional[int] = None) -> RenderOutput:
+                 tile_k: Optional[int] = None, vis=None) -> RenderOutput:
     """Render the antialiased silhouettes of the current geometry for a
     batch of views mvp (B,4,4), the geometry energy and, on request, the
     normal and depth images (depth needs campos (B,3)). ``tile_k`` is the
-    capped layout's per-tile capacity (see validated_tile_k)."""
+    capped layout's per-tile capacity (see validated_tile_k); ``vis`` the
+    output of ``render_visibility`` for the same arguments, if it was run
+    beforehand."""
     fwd = geometry_forward(tet_v, geom, it)
     # corner layout: one gather expands tet_v to per-(face, corner) rows,
     # so every per-face access downstream is a reshape
@@ -55,12 +75,12 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
     res = (int(resolution), int(resolution))
     if not (fit_normal or fit_depth):
         ids, z, g6, gaux, n_drop = rasterize_silhouette_with_rows(
-            pos_clip, geom.edge_nbrs, res, k=tile_k)
+            pos_clip, geom.edge_nbrs, res, k=tile_k, vis=vis)
         alpha = antialias_silhouette(ids, z, g6, gaux)[..., None]
         return RenderOutput(shaded=alpha, geo_regularization=fwd.energy,
                             n_drop=n_drop)
 
-    rast, n_drop = rasterize(pos_clip, res, k=tile_k)
+    rast, n_drop = rasterize(pos_clip, res, k=tile_k, vis=vis)
     alpha = antialias(rast, pos_clip, geom.edge_nbrs)[..., None]
     normal = depth = None
     if fit_normal:

@@ -2,13 +2,16 @@
 
     python -m tssplat_torch.tools.profile_step [--views 8] [--res 512]
         [--scene bench|multisphere] [--depth-normal] [--layout rule|flat]
+        [--view-chunk 0]
 
 On the benchmark scene (tools/synthetic.py bench_scene, AdamUniform) or
 the 18-sphere scene (multisphere_scene with the validated per-tile
 capacity; AdamUniform, or Adam lr 2e-3 with --depth-normal, which adds the
 depth and normal losses) it prints, as one JSON line each (``--layout
 flat`` keeps K1's uncapped lists where the rule would cap, to time both
-visibility paths in the same step on the same scene):
+visibility paths in the same step on the same scene; ``--view-chunk N``
+runs the train step in chunks of N views, as the driver does at 120
+views):
   - "layer": each layer of the step run alone, median device-synchronised
     wall time of 10 calls (energy fwd+bwd, clip transform, binning, the
     visibility kernel of the path (K1, K2a or K2b), the rest of the
@@ -65,6 +68,7 @@ def main(argv=None):
                     default="bench")
     ap.add_argument("--depth-normal", action="store_true")
     ap.add_argument("--layout", choices=("rule", "flat"), default="rule")
+    ap.add_argument("--view-chunk", type=int, default=0)
     args = ap.parse_args(argv)
     if args.layout == "flat":
         binning.FLAT_BUDGET_BYTES = 1 << 62    # no scene leaves K1's lists
@@ -89,7 +93,7 @@ def main(argv=None):
             cosine_annealing_lr(0.2, 1500), grad_limit=True,
             grad_limit_values=(0.01, 0.01), grad_limit_iters=(1500,))
     step = make_train_step(st, update_fn, resolution=args.res, tile_k=k,
-                           **fit)
+                           view_chunk=args.view_chunk, **fit)
     state = init_train_state(geo.tet_v, init_fn)
 
     x = geo.tet_v.detach().requires_grad_(True)
@@ -136,7 +140,8 @@ def main(argv=None):
     }
     if dn:
         layers["loss_and_grad_depth_normal"] = lambda: loss_and_grad(
-            st, geo.tet_v, batch, 0, args.res, tile_k=k, **fit)
+            st, geo.tet_v, batch, 0, args.res, tile_k=k,
+            view_chunk=args.view_chunk, **fit)
     else:
         layers["rows_K4_loss_bwd_K5_K3"] = aa_fwd_bwd
     layers["optimizer_update"] = update
@@ -173,7 +178,8 @@ def main(argv=None):
     busy_ms = busy / 1e3 / 5
     print(json.dumps({
         "profile": "train_step", "scene": args.scene, "depth_normal": dn,
-        "visibility": vis_name,
+        "visibility": vis_name, "views": args.views,
+        "view_chunk": args.view_chunk,
         "steps": 5, "wall_ms_per_step": wall,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall,

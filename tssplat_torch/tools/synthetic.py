@@ -1,15 +1,22 @@
 """Targets of a fixed surface mesh, rendered by the port's own forward
-pass (``tssplat_tpu/tools/synthetic.py`` ``render_views_of_mesh``, without
-the Lambertian colour, which only the texture stage reads), and the scenes
-built on them:
+pass (``tssplat_tpu/tools/synthetic.py``), the dataset writer, and the
+scenes built on them:
 
-  bench_scene       the repository's geometry-stage benchmark (one sphere)
-  multisphere_scene the production multi-sphere geometry at the size
-                    where both capped visibility kernels run
+  render_views_of_mesh          alpha, depth and normal images
+  write_synthetic_dataset       the on-disk layout MitsubaImgDataset reads
+  write_multisphere_key_points  the key points of multisphere_scene
+  bench_scene                   the repository's geometry-stage benchmark
+                                (one sphere)
+  multisphere_scene             the production multi-sphere geometry at
+                                the size where both capped visibility
+                                kernels run
+
+CLI: python -m tssplat_torch.tools.synthetic --mesh model.obj --save_path out/
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import tempfile
@@ -20,6 +27,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..geometry.multisphere import TetMeshMultiSphereGeometry
 from ..geometry.tet_geometry import TetMeshGeometry, compute_vertex_normals
+from ..mesh.io import load_obj
 from ..mesh.spheres import icosphere, tet_sphere
 from ..mesh.surface import triangle_edge_neighbors
 from ..mesh.tetmesh import TetMesh
@@ -72,6 +80,72 @@ def render_views_of_mesh(verts, faces, mvp, campos, resolution: int,
     return alpha, depth, nrm * fg
 
 
+def write_synthetic_dataset(out_dir: str, verts, faces, n_views: int = 120,
+                            resolution: int = 512, radius: float = 4.0,
+                            write_depth: bool = True,
+                            write_normal: bool = True,
+                            device: DeviceLike = None) -> None:
+    """Write the reference dataset layout MitsubaImgDataset reads
+    (``write_synthetic_dataset``, tools/synthetic.py:90; reference
+    data/render_dataset.py:264-299) for the surface mesh (verts, faces)
+    seen from ``fibonacci_views(n_views, radius)``: ``img_rgba_{i}.png``,
+    ``mvp_mtx_{i}.npy``, ``mv_{i}.npy``, ``depth_{i}.npy`` and
+    ``normal_{i}.npy`` (normal with alpha as its 4th channel), rendered
+    8 views at a time (as the JAX writer renders them) on ``device``.
+
+    The alpha, depth and normal images, which the geometry stage reads,
+    are the JAX writer's. The RGB channels are the Lambertian shade
+    clip(|n . l|, 0.2, 1) x 0.8 at foreground pixels (l = (0.3, 0.4, 0.85)
+    normalised), without the JAX writer's colour antialias: the port's
+    colour antialias comes with the texture stage (ROADMAP queue 1 item
+    3)."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    mvp, mv, campos = fibonacci_views(n_views, radius=radius)
+    ld = np.asarray([0.3, 0.4, 0.85], np.float32)
+    ld = ld / np.linalg.norm(ld)
+    vc = 8
+    for s in range(0, n_views, vc):
+        alpha, depth, normal = (t.cpu().numpy() for t in render_views_of_mesh(
+            verts, faces, mvp[s:s + vc], campos[s:s + vc], resolution,
+            device=device))
+        fg = np.any(normal != 0.0, axis=-1, keepdims=True)
+        rgb = np.clip(np.abs(normal @ ld), 0.2, 1.0)[..., None] \
+            * np.full(3, 0.8, np.float32) * fg
+        rgba = np.concatenate([rgb, alpha], axis=-1)
+        for j in range(alpha.shape[0]):
+            i = s + j
+            img = np.clip(rgba[j] * 255.0, 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(
+                os.path.join(out_dir, f"img_rgba_{i}.png"))
+            np.save(os.path.join(out_dir, f"mvp_mtx_{i}.npy"),
+                    mvp[i].astype(np.float32))
+            np.save(os.path.join(out_dir, f"mv_{i}.npy"),
+                    mv[i].astype(np.float32))
+            if write_depth:
+                np.save(os.path.join(out_dir, f"depth_{i}.npy"),
+                        depth[j].astype(np.float32))
+            if write_normal:
+                np.save(os.path.join(out_dir, f"normal_{i}.npy"),
+                        np.concatenate([normal[j], alpha[j]],
+                                       axis=-1).astype(np.float32))
+
+
+def main(argv=None, device: DeviceLike = None):
+    p = argparse.ArgumentParser(prog="python -m tssplat_torch.tools.synthetic")
+    p.add_argument("--mesh", required=True, help="surface OBJ to render")
+    p.add_argument("--save_path", required=True)
+    p.add_argument("--num_views", type=int, default=120)
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--radius", type=float, default=4.0)
+    args = p.parse_args(argv)
+    v, f = load_obj(args.mesh)
+    write_synthetic_dataset(args.save_path, v, f, n_views=args.num_views,
+                            resolution=args.resolution, radius=args.radius,
+                            device=device)
+
+
 def _ellipsoid_targets(n_views: int):
     """The benchmark's target: ``icosphere(3) * (0.30, 0.24, 0.18)`` seen
     from ``fibonacci_views(n_views)``."""
@@ -99,6 +173,15 @@ def bench_scene(device: DeviceLike = None, n_views: int = 8,
     return geo, batch
 
 
+def write_multisphere_key_points(path: str, n_spheres: int = 18) -> None:
+    """The key-points JSON {pt, r} of ``multisphere_scene``: ``n_spheres``
+    spheres of radius 0.16 centred on ``fibonacci_views(n_spheres,
+    radius=0.18)``."""
+    _, _, centers = fibonacci_views(n_spheres, radius=0.18)
+    with open(path, "w") as fh:
+        json.dump({"pt": centers.tolist(), "r": [0.16] * n_spheres}, fh)
+
+
 def multisphere_scene(device: DeviceLike = None, n_spheres: int = 18,
                       n_views: int = 8, resolution: int = 512):
     """The production multi-sphere geometry at benchmark views, as
@@ -112,11 +195,9 @@ def multisphere_scene(device: DeviceLike = None, n_spheres: int = 18,
     directory. Returns (geometry, batch) with batch = {"mvp", "campos"
     (B,3), "img" (B,H,W,1) alpha, "d" (B,H,W,1) depth, "n" (B,H,W,3)}."""
     dev = resolve_device(device)
-    _, _, centers = fibonacci_views(n_spheres, radius=0.18)
     with tempfile.TemporaryDirectory(prefix="tss_spheres_") as tmp:
         kp = os.path.join(tmp, "kp.json")
-        with open(kp, "w") as fh:
-            json.dump({"pt": centers.tolist(), "r": [0.16] * n_spheres}, fh)
+        write_multisphere_key_points(kp, n_spheres)
         geo = TetMeshMultiSphereGeometry(dict(
             use_smooth_barrier=True, key_points_file_path=kp,
             tetwild_cache_folder=os.path.join(tmp, "cache"),
@@ -128,3 +209,7 @@ def multisphere_scene(device: DeviceLike = None, n_spheres: int = 18,
              "campos": torch.tensor(campos, dtype=torch.float32, device=dev),
              "img": alpha, "d": depth[..., None], "n": normal}
     return geo, batch
+
+
+if __name__ == "__main__":
+    main()
