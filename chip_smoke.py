@@ -82,10 +82,32 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                losses. (b) and (c) load (a)'s
                sphere meshes (init path B). One line per run: the driver's
                it/s, peak device memory, launches an iteration, seconds
+ 11. texture — the texture stage through the same main() on (a)'s final/
+               meshes (init path C): gso.yaml plus fitting_stage=texture
+               material_type=ExplicitMaterial (the default 16 x 2^19 hash
+               grid, 32-64-3 MLP) at 120 views of 512², the ellipsoid's
+               antialiased Lambertian colour as the target. (a) the exact
+               path, 24 iterations: its line printed and no warning, the
+               visibility kernel (K1 or K2a) launched once per view in the
+               cache build, once in the UV bake and never inside a step,
+               img_loss falling (the mean of the last four logged against
+               the first four), final/material/{material.npz,
+               texture_kd.png, mesh.obj, material.mtl} written and the
+               texture not flat grey; (b) the sampled path
+               (texture_sample_px=4096, cached), 24 iterations, its cache
+               line, no launch inside a step, img_loss falling; (c) the card
+               against the CPU on 2 views of 128² (the port's writer, the
+               same final/ geometry, the same seeded material): one exact
+               step and one dense step, loss within rtol 1e-5, the network's
+               gradients within 1e-4 of their max and the table's within
+               1e-3 (atomics). One line per run: the driver's it/s, the step
+               ms (median of the synchronised steps after the first), peak
+               memory, launches an iteration, seconds
 The launch counts are zeroed just before each main-path phase (4, 7, 8,
-10a-c) and read just after it. Then one JSON line of per-kernel results
-(launches of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a from 8),
-the nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+10a-c, 11a-b) and read just after it. Then one JSON line of per-kernel
+results (launches of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a
+from 8; ``launches_texture`` from phase 11 (a)), the nvidia-smi line, and
+as the last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -570,7 +592,9 @@ def main():
               flush=True)
 
     del ms_geo, ms_batch, two, two_cpu
-    driver_phase(smi)
+    texture_counts = driver_phase(smi)
+    for r in results:
+        r["launches_texture"] = texture_counts.get(r["name"], 0)
 
     require(len(results) == len(rk.KERNELS), "a kernel is missing a report")
     print(json.dumps({"kernels": results}))
@@ -595,14 +619,16 @@ class _Tee(io.TextIOBase):
 
 
 def driver_phase(smi, views=120, res=512, device=None):
-    """Phase 10: configs/gso.yaml through tssplat_torch.train.main at
-    ``views`` views of res² (120 of 512², see the module docstring) on
-    ``device`` (the card unless given)."""
+    """Phases 10 and 11: configs/gso.yaml through tssplat_torch.train.main
+    at ``views`` views of res² (120 of 512², see the module docstring) on
+    ``device`` (the card unless given), the geometry stage and then the
+    texture stage on its result. Returns the launch counts of 11 (a)."""
     from tssplat_torch.mesh.spheres import icosphere
     from tssplat_torch.ops import raster_kernels as rk
     from tssplat_torch.tools.synthetic import (write_multisphere_key_points,
                                                write_synthetic_dataset)
     import tssplat_torch.train as tt
+    from tssplat_torch.utils.tree import tree_leaves
 
     gso = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                        "gso.yaml")
@@ -624,9 +650,10 @@ def driver_phase(smi, views=120, res=512, device=None):
 
         def run(label, iters, want, *over):
             """main() on gso.yaml with ``over`` for ``iters`` iterations;
-            requires finite losses, no warning and the launch counts
-            ``want`` (every other kernel 0); returns the logged (iteration,
-            img_loss) pairs, the output directory and the printed text."""
+            requires finite losses, no warning and, unless ``want`` is
+            None, the launch counts ``want`` (every other kernel 0);
+            returns the logged (iteration, img_loss) pairs, the output
+            directory and the printed text."""
             out = f"{tmp}/{label}"
             argv = ["--config", gso, *base, f"output_path={out}",
                     f"data.total_num_iter={iters}", *over]
@@ -656,17 +683,19 @@ def driver_phase(smi, views=120, res=512, device=None):
                   f"{logged[-1][1]}; on {smi}", flush=True)
             require("WARNING" not in text, f"{label}: a warning: {text}")
             require(all(math.isfinite(x) for _, x in logged)
-                    and bool(torch.isfinite(state.params).all()),
+                    and all(bool(torch.isfinite(p).all())
+                            for p in tree_leaves(state.params)),
                     f"{label}: non-finite loss or parameters {logged}")
-            full = dict.fromkeys(counts, 0)
-            full.update(want)
-            require(counts == full, f"{label}: launches {counts} over "
-                    f"{iters} iterations, expected {full}")
+            if want is not None:
+                full = dict.fromkeys(counts, 0)
+                full.update(want)
+                require(counts == full, f"{label}: launches {counts} over "
+                        f"{iters} iterations, expected {full}")
             return logged, out, text
 
         # (a) gso.yaml as shipped, 24 iterations: per chunk one K2b, K3
         # and K5, and K4 twice (forward and recomputation)
-        log_a, out, text = run(
+        log_a, out_a, text = run(
             "a_chunked", 24, dict(visibility_capped=24 * chunks,
                                   wsr_table_grad=24 * chunks,
                                   aa_forward=48 * chunks,
@@ -676,7 +705,7 @@ def driver_phase(smi, views=120, res=512, device=None):
                 "(a): view_chunk auto did not pick chunks of 8")
         require(log_a[-1][1] < log_a[0][1],
                 f"(a): img_loss did not fall {log_a}")
-        final = set(os.listdir(f"{out}/final"))
+        final = set(os.listdir(f"{out_a}/final"))
         need = {"final.veg", "final_surface_mesh.obj", "final_vtx.npy",
                 "final_elem.npy", "spheres_vtx_idx.json",
                 "spheres_elem_idx.json"} | {
@@ -684,7 +713,7 @@ def driver_phase(smi, views=120, res=512, device=None):
         require(need <= final, f"(a): final/ lacks {sorted(need - final)}")
         for path in ("mesh00000/00000.veg", "mesh00012/00012.veg",
                      "ckpt/step_00000012.pt"):
-            require(os.path.exists(f"{out}/{path}"), f"(a): no {path}")
+            require(os.path.exists(f"{out_a}/{path}"), f"(a): no {path}")
 
         # (b) unchunked, 8 iterations, on (a)'s sphere meshes
         log_b, _, text = run(
@@ -722,6 +751,148 @@ def driver_phase(smi, views=120, res=512, device=None):
             tt.make_train_step = make_step
         require(built == [False, True], f"(c): steps built {built}")
         require(len(log_c) == 12, f"(c): {len(log_c)} log lines")
+
+        return texture_phase(smi, tmp, run, f"{out_a}/final", views,
+                             device)
+
+
+def _falls(logged):
+    """The mean of the last four logged losses below that of the first
+    four."""
+    first = [x for _, x in logged[:4]]
+    last = [x for _, x in logged[-4:]]
+    return sum(last) / len(last) < sum(first) / len(first)
+
+
+def texture_phase(smi, tmp, run, geo_dir, views, device=None):
+    """Phase 11 (see the module docstring): the texture stage on the
+    geometry of ``geo_dir`` through ``run`` (driver_phase's main() runner);
+    returns the launch counts of (a)."""
+    import numpy as np
+    from PIL import Image
+    from tssplat_torch.data import MitsubaImgDataLoader
+    from tssplat_torch.geometry import TetMeshMultiSphereGeometry
+    from tssplat_torch.materials import ExplicitMaterial
+    from tssplat_torch.materials.exact_stage import (
+        build_texture_exact_cache, build_texture_exact_loss)
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.tools.synthetic import write_synthetic_dataset
+    import tssplat_torch.train as tt
+
+    vis_kernels = ("visibility", "visibility_capped_ids")
+    tex = ["fitting_stage=texture", "material_type=ExplicitMaterial",
+           f"geometry.initial_mesh_path={geo_dir}", "log_every=1",
+           "export_every=12", "checkpoint_every=12"]
+    make_step = tt.make_train_step
+
+    def timed(label, iters, want_line, *over):
+        """run() with every step synchronised and timed, and the launches
+        inside the steps counted apart."""
+        step_ms, in_steps = [], []
+
+        def spy(*args, **kw):
+            step = make_step(*args, **kw)
+
+            def timed_step(state, batch, it):
+                torch.cuda.synchronize()
+                before = rk.launch_counts()
+                t0 = time.perf_counter()
+                out = step(state, batch, it)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                after = rk.launch_counts()
+                in_steps.append(sum(after[k] - before[k] for k in after))
+                return out
+            return timed_step
+
+        tt.make_train_step = spy
+        try:
+            t0 = time.perf_counter()
+            logged, out, text = run(label, iters, None, *tex, *over)
+            secs = time.perf_counter() - t0
+        finally:
+            tt.make_train_step = make_step
+        counts = rk.launch_counts()
+        med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        print(f"[texture] {label}: step {med:.2f} ms (median of "
+              f"{len(step_ms) - 1} synchronised steps after the first, "
+              f"first {step_ms[0]:.1f} ms); launches inside the steps "
+              f"{sum(in_steps)}; all launches {counts}; {secs:.1f} s; on "
+              f"{smi}", flush=True)
+        require(want_line in text, f"{label}: no '{want_line}' line")
+        require(sum(in_steps) == 0, f"{label}: {in_steps} launches inside "
+                f"the steps")
+        require(_falls(logged), f"{label}: img_loss did not fall {logged}")
+        return counts, out, text
+
+    # (a) the exact path
+    counts, out, text = timed("tex_a_exact", 24, "exact texture fast path")
+    n_vis = sum(counts[k] for k in vis_kernels)
+    require(n_vis == views + 1, f"(a): {n_vis} visibility launches, "
+            f"expected {views} (the cache) + 1 (the UV bake)")
+    require(all(counts[k] == 0 for k in counts if k not in vis_kernels),
+            f"(a): launches {counts}")
+    mat_dir = f"{out}/final/material"
+    have = set(os.listdir(mat_dir))
+    need = {"material.npz", "texture_kd.png", "mesh.obj", "material.mtl"}
+    require(need <= have, f"(a): final/material lacks {need - have}")
+    img = np.asarray(Image.open(f"{mat_dir}/texture_kd.png"))
+    grey = float(np.mean(np.all(img == 128, axis=-1)))
+    require(img.shape[:2] == (1024, 1024) and grey < 0.5
+            and img.std() > 1.0, f"(a): texture flat (grey {grey})")
+    print(f"[texture] (a) {sorted(have)} written; texture 1024², "
+          f"{grey:.3f} of its texels 128-grey, std {img.std():.2f}",
+          flush=True)
+
+    # (b) the sampled path, cached
+    _, _, text = timed("tex_b_sampled", 24, "texture cache:",
+                       "texture_sample_px=4096")
+    require("exact texture" not in text, "(b): took the exact path")
+
+    # (c) the card against the CPU, 2 views of 128²
+    v, f = icosphere(subdivisions=3)
+    write_synthetic_dataset(f"{tmp}/img128", v * [0.30, 0.24, 0.18], f,
+                            n_views=2, resolution=128, device=device)
+    ref = {}
+    for d in (device or "cuda", "cpu"):
+        geo = TetMeshMultiSphereGeometry(dict(
+            initial_mesh_path=geo_dir, use_smooth_barrier=False,
+            output_path=f"{tmp}/ref"), device=d)
+        loader = MitsubaImgDataLoader(dict(
+            dataset_config=dict(image_root=f"{tmp}/img128"), batch_size=2,
+            total_num_iter=1), device=d)
+        mat = ExplicitMaterial(None, device=d)
+        cache = build_texture_exact_cache(geo, mat, loader.data_all, 128)
+        exact = build_texture_exact_loss(mat, geo.statics, cache)
+        p = {k: {n: x.detach().requires_grad_(True) for n, x in g.items()}
+             for k, g in mat.params.items()}
+        le = exact(p, 3)[0] * 100.0
+        ge = torch.autograd.grad(le, [p["encoding"]["table"],
+                                      *p["network"].values()])
+        batch = {k: x for k, x in loader(0, 0).items()
+                 if k not in ("resolution", "spp")}
+        ld, _, _, _, gd = tt.loss_and_grad(
+            geo.statics, geo.tet_v, batch, 3, 128,
+            material_fn=mat.apply_fn, mat_params=mat.params)
+        ref[d] = [(float(le.detach()), [g.cpu() for g in ge]),
+                  (float(ld), [gd["encoding"]["table"].cpu(),
+                               *(g.cpu() for g in gd["network"].values())])]
+    for i, label in enumerate(("exact", "dense")):
+        (l_g, g_g), (l_c, g_c) = ref[device or "cuda"][i], ref["cpu"][i]
+        require(abs(l_g - l_c) <= 1e-5 * abs(l_c),
+                f"(c) {label}: loss {l_g} vs CPU {l_c}")
+        errs = []
+        for j, (a, b) in enumerate(zip(g_g, g_c)):
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            require(err <= (1e-3 if j == 0 else 1e-4) * scale,
+                    f"(c) {label}: gradient {j} err {err} of max {scale}")
+            errs.append(err / scale)
+        print(f"[texture] (c) {label} step on 2x128², card vs CPU: loss "
+              f"{l_g:.7f} (CPU {l_c:.7f}); gradient errors over their max "
+              f"{[f'{e:.2g}' for e in errs]} (table first)", flush=True)
+    return counts
 
 
 if __name__ == "__main__":

@@ -32,9 +32,11 @@ from tssplat_torch.geometry import (LinearInterpolateScheduler,
                                     TetMeshMultiSphereGeometry,
                                     permute_surface_vertices)
 from tssplat_torch.mesh.tetmesh import TetMesh
-from tssplat_torch.optim import adam, adam_uniform
-from tssplat_torch.tools.synthetic import write_synthetic_dataset
+from tssplat_torch.optim import adam, adam_uniform, apply_updates
+from tssplat_torch.tools.synthetic import (render_rgb_of_mesh,
+                                           write_synthetic_dataset)
 from tssplat_torch.train import TrainState, init_train_state
+from tssplat_torch.utils.tree import tree_leaves, tree_map
 from tssplat_torch.utils import (ThroughputMeter, latest_checkpoint_step,
                                  restore_checkpoint, save_checkpoint)
 
@@ -118,6 +120,7 @@ def test_registries():
     """The names the shipped configs use resolve to the port's classes;
     unknown names raise with the known ones; the Wonder3D loader's name
     raises 'not ported'."""
+    from tssplat_torch.materials import ExplicitMaterial
     assert config.load_geometry("TetMeshMultiSphereGeometry") \
         is TetMeshMultiSphereGeometry
     assert config.load_geometry("TetMeshGeometry") is TetMeshGeometry
@@ -128,8 +131,10 @@ def test_registries():
         "BlenderImgDataLoader", "ArrayDataLoader", "Wonder3DDataLoader"}
     with pytest.raises(KeyError, match="TetMeshGeometry"):
         config.load_geometry("NoSuchGeometry")
-    with pytest.raises(KeyError, match="unknown material"):
-        config.load_material("ExplicitMaterial")
+    assert config.load_material("ExplicitMaterial") is ExplicitMaterial
+    assert config.MATERIALS.names() == ["ExplicitMaterial"]
+    with pytest.raises(KeyError, match="unknown material.*ExplicitMaterial"):
+        config.load_material("None")
     with pytest.raises(NotImplementedError, match="not ported"):
         config.load_dataloader("Wonder3DDataLoader")({})
 
@@ -208,8 +213,9 @@ def test_writer_matches_jax(datasets):
     foreground pixels (z near-ties between faces, where the two packages'
     clip transforms, a last bit apart, pick different winners; ROADMAP
     queue 3); the normal's
-    4th channel the alpha; the RGB the Lambertian shade of the normal at
-    foreground pixels, without the colour antialias of JAX's writer."""
+    4th channel the alpha; the RGB the bytes of render_rgb_of_mesh (the
+    antialiased Lambertian shade; test_writer_rgb_matches_jax holds it to
+    JAX's writer)."""
     jd, td = datasets / "jax", datasets / "torch"
     assert sorted(os.listdir(td)) == sorted(os.listdir(jd))
     for i in range(N_VIEWS):
@@ -232,13 +238,61 @@ def test_writer_matches_jax(datasets):
         assert int(np.sum(off & fg)) <= ties
         np.testing.assert_allclose(np.clip(n_t[..., 3] * 255, 0, 255)
                                    .astype(np.uint8), img_t[..., 3])
-        # the RGB: the Lambertian shade of the port's own normal, no AA
-        ld = np.asarray([0.3, 0.4, 0.85], np.float32)
-        shade = np.clip(np.abs(n_t[..., :3] @ (ld / np.linalg.norm(ld))),
-                        0.2, 1.0) * 0.8 * (d_t > 0)
-        want = np.clip(shade * 255.0, 0, 255).astype(np.uint8)
-        for c in range(3):
-            np.testing.assert_array_equal(img_t[..., c], want)
+        v, f = icosphere(subdivisions=3)
+        rgb = render_rgb_of_mesh(v * np.asarray([0.30, 0.24, 0.18]), f,
+                                 np.load(td / f"mvp_mtx_{i}.npy")[None], RES,
+                                 device="cpu")[0].numpy()
+        np.testing.assert_array_equal(
+            img_t[..., :3], np.clip(rgb * 255.0, 0, 255).astype(np.uint8))
+
+
+def test_writer_rgb_matches_jax(tmp_path):
+    """The two writers' img_rgba_*.png at 4 views of 64² of the ellipsoid:
+    every byte within 1 LSB, but at the pixels where JAX's writer disagrees
+    with JAX's own corner-layout colour antialias (ROADMAP queue 3: its
+    clip transform of the 642 shared vertices and of the 3,840 corners
+    differ in the last bit, which moves the AA of a few interior pixel
+    pairs: 12 of view 0's 112 foreground pixels); the port's RGB equals
+    the corner-layout chain within 1 LSB everywhere."""
+    import jax.numpy as jnp
+    from tssplat_tpu.mesh.surface import triangle_edge_neighbors
+    from tssplat_tpu.ops.rasterize import antialias, interpolate, rasterize
+    from tssplat_tpu.ops.transform import fibonacci_views, transform_pos
+    from tssplat_tpu.geometry.tet_geometry import compute_vertex_normals
+
+    v, f = icosphere(subdivisions=3)
+    v = v * np.asarray([0.30, 0.24, 0.18])
+    n, res = 4, 64
+    jax_write_dataset(str(tmp_path / "jax"), v, f, n_views=n, resolution=res)
+    write_synthetic_dataset(str(tmp_path / "torch"), v, f, n_views=n,
+                            resolution=res, device="cpu")
+    # JAX's writer's colour chain in the corner layout
+    mvp = jnp.asarray(fibonacci_views(n)[0], jnp.float32)
+    F = f.shape[0]
+    tri_c = jnp.arange(3 * F, dtype=jnp.int32).reshape(F, 3)
+    vc = jnp.asarray(v[f.reshape(-1)], jnp.float32)
+    pc = transform_pos(mvp, vc)
+    rast = rasterize(pc, tri_c, (res, res), corner=True)
+    nrm = interpolate(compute_vertex_normals(
+        jnp.asarray(v, jnp.float32), jnp.asarray(f, jnp.int32))[f.reshape(-1)],
+        rast, tri_c, corner=True)
+    nrm = nrm / jnp.maximum(jnp.linalg.norm(nrm, axis=-1, keepdims=True),
+                            1e-8)
+    ld = np.asarray([0.3, 0.4, 0.85], np.float32)
+    lam = jnp.clip(jnp.abs(jnp.sum(nrm * (ld / np.linalg.norm(ld)), -1,
+                                   keepdims=True)), 0.2, 1.0)
+    col = antialias(lam * 0.8 * (rast[..., 3:4] > 0), rast, pc, tri_c,
+                    jnp.asarray(triangle_edge_neighbors(f), jnp.int32),
+                    corner=True)
+    corner = np.clip(np.asarray(col) * 255.0, 0, 255).astype(np.uint8)
+    for i in range(n):
+        a, b = (np.asarray(Image.open(tmp_path / d / f"img_rgba_{i}.png"))
+                .astype(int) for d in ("jax", "torch"))
+        assert np.abs(a[..., 3] - b[..., 3]).max() <= 1
+        layout = np.abs(a[..., :3] - corner[i]).max(-1) > 1
+        assert layout.sum() <= 0.2 * (a[..., 3] > 0).sum()
+        assert np.abs(a - b)[~layout].max() <= 1
+        assert np.abs(b[..., :3] - corner[i]).max() <= 1
 
 
 def test_exports_match_jax(tmp_path):
@@ -324,29 +378,42 @@ def test_permute_surface_vertices_contract():
 
 
 def _leaves(state):
-    return [state.params, *state.opt_state, state.best_loss, state.best_iter,
-            state.best_params]
+    return [leaf for part in (state.params, *state.opt_state,
+                              state.best_loss, state.best_iter,
+                              state.best_params)
+            for leaf in tree_leaves(part)]
 
 
-@pytest.mark.parametrize("opt", ["adam_uniform", "adam"])
+@pytest.mark.parametrize("opt", ["adam_uniform", "adam", "adam_uniform_dict",
+                                 "adam_dict"])
 def test_checkpoint_round_trip(tmp_path, opt):
-    """The full TrainState with either optimizer's state: the file loads
-    with weights_only=True; restore gives every field back on the
-    template's device, the newest by default or a given step; the newest
-    ``keep`` stay; a template of another optimizer is refused."""
-    init_fn, update_fn = (adam_uniform(0.1, grad_limit=True) if opt ==
-                          "adam_uniform" else adam(1e-3))
+    """The full TrainState with either optimizer's state, of one tensor (the
+    geometry stage) or of a material's dict of them (the texture stage):
+    the file loads with weights_only=True; restore gives every field back
+    on the template's device, the newest by default or a given step; the
+    newest ``keep`` stay; a template of another optimizer is refused."""
+    init_fn, update_fn = (adam_uniform(0.1, grad_limit=True) if
+                          opt.startswith("adam_uniform") else adam(1e-3))
     rng = np.random.default_rng(0)
-    params = torch.as_tensor(rng.normal(size=(5, 3)), dtype=torch.float32)
+
+    def like(x):
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if opt.endswith("_dict"):
+            return {"encoding": {"table": t[:2]},
+                    "network": {"l0_b": t[2], "l0_w": t[3:]}}
+        return t
+    params = like(rng.normal(size=(5, 3)))
     states = {}
     state = init_train_state(params, init_fn)
     d = str(tmp_path / "ckpt")
     for step in (2, 4, 6, 8):
-        upd, opt_state = update_fn(params * step, state.opt_state)
-        state = TrainState(params=state.params + upd, opt_state=opt_state,
+        upd, opt_state = update_fn(tree_map(lambda p: p * step, params),
+                                   state.opt_state)
+        state = TrainState(params=apply_updates(state.params, upd),
+                           opt_state=opt_state,
                            best_loss=torch.tensor(1.0 / step),
                            best_iter=torch.tensor(step, dtype=torch.int32),
-                           best_params=state.params.clone())
+                           best_params=tree_map(torch.clone, state.params))
         states[step] = state
         save_checkpoint(d, step, state, keep=2)
     assert sorted(os.listdir(d)) == ["step_00000006.pt", "step_00000008.pt"]
@@ -355,7 +422,7 @@ def test_checkpoint_round_trip(tmp_path, opt):
     blob = torch.load(os.path.join(d, "step_00000008.pt"), weights_only=True)
     assert blob["step"] == 8 and isinstance(blob["state"], dict)
 
-    template = init_train_state(torch.zeros(5, 3), init_fn)
+    template = init_train_state(like(np.zeros((5, 3))), init_fn)
     for step in (None, 6):
         got_step, got = restore_checkpoint(d, template, step=step)
         want = states[got_step]
@@ -363,12 +430,13 @@ def test_checkpoint_round_trip(tmp_path, opt):
         assert type(got) is TrainState
         assert type(got.opt_state) is type(want.opt_state)
         for a, b in zip(_leaves(got), _leaves(want)):
-            assert a.device == template.params.device
+            assert a.device == _leaves(template)[0].device
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    other = adam(1e-3)[0] if opt == "adam_uniform" else \
+    other = adam(1e-3)[0] if opt.startswith("adam_uniform") else \
         adam_uniform(0.1)[0]
     with pytest.raises(ValueError, match="template"):
-        restore_checkpoint(d, init_train_state(torch.zeros(5, 3), other))
+        restore_checkpoint(d, init_train_state(like(np.zeros((5, 3))),
+                                               other))
     with pytest.raises(FileNotFoundError):
         restore_checkpoint(str(tmp_path / "none"), template)
 

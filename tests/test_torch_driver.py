@@ -326,16 +326,14 @@ def test_sigterm_checkpoints_and_resumes(two_views, capsys):
 
 
 @pytest.mark.parametrize("knob, item", [
-    (dict(fitting_stage="texture"), 3),
-    (dict(material_type="ExplicitMaterial"), 3),
     (dict(remesh_every=10), 4),
     (dict(spatial=2), 6),
     (dict(data=dict(world_size=2)), 6),
     (dict(debug_nans=True), 7),
     (dict(anomaly=True), 7),
     (dict(sds=dict(prompt="a dog")), 8),
-], ids=["texture", "material", "remesh", "spatial", "world_size",
-        "debug_nans", "anomaly", "sds"])
+], ids=["remesh", "spatial", "world_size", "debug_nans", "anomaly",
+        "sds"])
 def test_unported_knobs_raise(root, knob, item):
     """Each knob of a part not yet ported raises NotImplementedError naming
     its ROADMAP item, before anything is built."""
@@ -346,6 +344,27 @@ def test_unported_knobs_raise(root, knob, item):
         cfg.update(knob)
     with pytest.raises(NotImplementedError,
                        match=rf"not ported \(ROADMAP queue 1 item {item}\)"):
+        torch_train.train(ConfigDict(cfg), device="cpu")
+    assert not os.path.exists(root / "knobs")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(fitting_stage="texture", material_type="ExplicitMaterial"),
+    dict(material_type="ExplicitMaterial"),
+], ids=["texture", "material"])
+def test_texture_knobs_pass_the_knob_check(root, knob):
+    """The texture stage and its material, ported, no longer raise
+    (tests/test_torch_texture_driver.py runs them)."""
+    cfg = _cfg(root, "knobs", 2)
+    cfg.update(knob)
+    torch_train._refuse_unported(ConfigDict(cfg))
+
+
+def test_unknown_stage_raises(root):
+    """A fitting_stage other than geometry or texture is refused before
+    anything is built."""
+    cfg = _cfg(root, "knobs", 2, fitting_stage="shading")
+    with pytest.raises(ValueError, match="unknown fitting_stage"):
         torch_train.train(ConfigDict(cfg), device="cpu")
     assert not os.path.exists(root / "knobs")
 

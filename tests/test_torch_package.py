@@ -29,7 +29,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     """Every module of the port, imported in a fresh interpreter, loads no
-    jax and no tssplat_tpu module; the driver's modules among them."""
+    jax and no tssplat_tpu module; the driver's and the texture stage's
+    modules among them."""
     code = (
         "import sys, pkgutil, importlib, tssplat_torch\n"
         "for m in pkgutil.walk_packages(tssplat_torch.__path__, "
@@ -38,7 +39,11 @@ def test_import_pulls_in_no_jax():
         "need = ['tssplat_torch.train', 'tssplat_torch.config', "
         "'tssplat_torch.data', 'tssplat_torch.data.loader', "
         "'tssplat_torch.utils', 'tssplat_torch.utils.checkpoint', "
-        "'tssplat_torch.tools.synthetic']\n"
+        "'tssplat_torch.tools.synthetic', 'tssplat_torch.models', "
+        "'tssplat_torch.models.networks', 'tssplat_torch.materials', "
+        "'tssplat_torch.materials.explicit_material', "
+        "'tssplat_torch.materials.exact_stage', "
+        "'tssplat_torch.materials.export', 'tssplat_torch.mesh.uv']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tssplat_tpu')]\n"

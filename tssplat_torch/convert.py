@@ -8,10 +8,12 @@ thing from the same inputs:
   geometry_statics   GeometryStatics (surface_vid, surface_fid, edge_nbrs,
                      corner_vid, EnergyOps and the scalar coefficients)
   tet_v              (N,3) f32 vertex positions
+  material_params    a material's nested dict of f32 tensors (MLP
+                     weights stay (in, out), as both packages store them)
   adam_state         AdamUniformState (count, g1, g2, limit_ptr, cc)
   optax_adam_state   AdamState (count, mu, nu) of ``optax.adam``
   train_state        TrainState (params, either optimizer's state, best
-                     loss / iteration / params)
+                     loss / iteration / params) of either stage
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .ops.energy import EnergyOps, energy_ops_from_arrays
 from .optim.adam import AdamState
 from .optim.adam_uniform import AdamUniformState
 from .train import TrainState
+from .utils.tree import tree_map
 
 
 def _i64(a, dev):
@@ -68,32 +71,49 @@ def tet_v(a, device: DeviceLike = None) -> torch.Tensor:
     return _f32(a, resolve_device(device))
 
 
+def _tree_f32(tree, dev):
+    """An array, or a (nested) dict of arrays, as f32 tensors."""
+    return tree_map(lambda a: _f32(a, dev), tree)
+
+
+def material_params(params, device: DeviceLike = None):
+    """A JAX material's parameters ({"encoding": {...}, "network": {...}},
+    e.g. ``ExplicitMaterial(cfg).params``) as the port's dict of tensors.
+    Both packages store the MLP weights (in, out): nothing is
+    transposed."""
+    return _tree_f32(params, resolve_device(device))
+
+
 def adam_state(state, device: DeviceLike = None) -> AdamUniformState:
-    """A JAX ``AdamUniformState`` whose moments are single arrays."""
+    """A JAX ``AdamUniformState`` whose moments are arrays or dicts of
+    them."""
     dev = resolve_device(device)
     return AdamUniformState(count=_i32(state.count, dev),
-                            g1=_f32(state.g1, dev), g2=_f32(state.g2, dev),
+                            g1=_tree_f32(state.g1, dev),
+                            g2=_tree_f32(state.g2, dev),
                             limit_ptr=_i32(state.limit_ptr, dev),
                             cc=_i32(state.cc, dev))
 
 
 def optax_adam_state(state, device: DeviceLike = None) -> AdamState:
-    """The state of ``optax.adam(schedule)`` on one array: (ScaleByAdamState
-    (count, mu, nu), ScaleByScheduleState(count)); the two counts agree."""
+    """The state of ``optax.adam(schedule)`` on an array or a dict of them:
+    (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)); the two
+    counts agree."""
     dev = resolve_device(device)
     adam_st = state[0]
-    return AdamState(count=_i32(adam_st.count, dev), mu=_f32(adam_st.mu, dev),
-                     nu=_f32(adam_st.nu, dev))
+    return AdamState(count=_i32(adam_st.count, dev),
+                     mu=_tree_f32(adam_st.mu, dev),
+                     nu=_tree_f32(adam_st.nu, dev))
 
 
 def train_state(state, device: DeviceLike = None) -> TrainState:
-    """A JAX geometry-stage ``TrainState`` (e.g. from ``jax.device_get``)
+    """A JAX ``TrainState`` of either stage (e.g. from ``jax.device_get``)
     whose opt_state is AdamUniform's or ``optax.adam``'s."""
     dev = resolve_device(device)
     opt = state.opt_state
     opt = adam_state(opt, dev) if hasattr(opt, "g1") \
         else optax_adam_state(opt, dev)
-    return TrainState(params=_f32(state.params, dev), opt_state=opt,
+    return TrainState(params=_tree_f32(state.params, dev), opt_state=opt,
                       best_loss=_f32(state.best_loss, dev),
                       best_iter=_i32(state.best_iter, dev),
-                      best_params=_f32(state.best_params, dev))
+                      best_params=_tree_f32(state.best_params, dev))

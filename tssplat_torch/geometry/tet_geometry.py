@@ -29,7 +29,7 @@ class GeometryStatics(NamedTuple):
     surface_fid: torch.Tensor      # (Fs,3) int64 — surface tris in surface ids
     edge_nbrs: torch.Tensor        # (Fs,3) int64 — AA edge adjacency (-1 open)
     corner_vid: torch.Tensor       # (3*Fs,) int64 — tet-vertex id per corner
-    energy: Optional[EnergyOps]    # None when use_smooth_barrier=False
+    energy: Optional[EnergyOps]    # None without use_smooth_barrier or optimize_geo
     smooth_coeff: float
     barrier_coeff: float
     increase_order_iter: int
@@ -171,9 +171,13 @@ class TetMeshGeometry:
         sb = parse_structured(SmoothBarrierParam,
                               self.cfg.smooth_barrier_param or {})
         dev = self.device
+        # a frozen geometry (the texture stage) never evaluates its energy:
+        # none is built, so a fitted mesh with an inverted tet loads (JAX
+        # builds it anyway and refuses such a mesh)
         energy = build_energy_ops(
             tetmesh, dev, laplacian_weighting=sb.laplacian_weighting) \
-            if self.cfg.use_smooth_barrier else None
+            if self.cfg.use_smooth_barrier and self.cfg.optimize_geo \
+            else None
 
         def i64(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.int64,

@@ -15,7 +15,7 @@ The port's own copy of ``tssplat_tpu/mesh/io.py`` (numpy only).
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -146,3 +146,18 @@ def save_obj(path: str, verts: np.ndarray, faces: np.ndarray,
             else:
                 a, b, c = tri + 1
                 f.write(f"f {a} {b} {c}\n")
+
+
+def save_mtl(path: str, matname: str,
+             texture_maps: Optional[Dict[str, str]] = None,
+             kd=(1.0, 1.0, 1.0), ks=(0.0, 0.0, 0.0)) -> None:
+    """MTL writer with optional texture map references (``save_mtl``,
+    io.py:149; reference utils/save.py:54-123)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"newmtl {matname}\n")
+        f.write("illum 2\n")
+        f.write(f"Kd {kd[0]} {kd[1]} {kd[2]}\n")
+        f.write(f"Ks {ks[0]} {ks[1]} {ks[2]}\n")
+        for key, fname in (texture_maps or {}).items():
+            f.write(f"{key} {fname}\n")

@@ -1,10 +1,10 @@
 """TetMesh: the host-side tetrahedral mesh container (numpy).
 
-The port's own copy of ``tssplat_tpu/mesh/tetmesh.py`` without the UV
-atlas: rest vertices + connectivity, the boundary surface, rest-shape
-inverse edge matrices, tet face adjacency and surface-triangle edge
-adjacency, and .veg/.obj persistence (reference
-geometry/tetrahedron_mesh.py:27-91).
+The port's own copy of ``tssplat_tpu/mesh/tetmesh.py``: rest vertices +
+connectivity, the boundary surface, rest-shape inverse edge matrices, tet
+face adjacency and surface-triangle edge adjacency, the surface's UV atlas
+(chart-based, or the trivial per-triangle one), and .veg/.obj persistence
+(reference geometry/tetrahedron_mesh.py:27-91).
 """
 
 from __future__ import annotations
@@ -28,6 +28,27 @@ def tet_rest_matrices(verts: np.ndarray, tets: np.ndarray):
     vol = np.linalg.det(dX) / 6.0
     dX_inv = np.linalg.inv(dX)
     return dX_inv, vol
+
+
+def trivial_uv_atlas(faces: np.ndarray, border: float = 0.002):
+    """Per-triangle UV atlas on a square grid (``trivial_uv_atlas``,
+    tetmesh.py:43): each triangle an isolated right triangle in its own
+    cell. Returns (uv (3F,2) float32, uv_faces (F,3) int64, uv_vid (3F,)
+    int64, the mesh vertex of each UV vertex)."""
+    F = faces.shape[0]
+    n = int(np.ceil(np.sqrt(F)))
+    cell = 1.0 / n
+    tri = np.arange(F)
+    cx = (tri % n).astype(np.float64) * cell
+    cy = (tri // n).astype(np.float64) * cell
+    b, s = border, cell - 2 * border
+    uv = np.zeros((F, 3, 2), dtype=np.float64)
+    uv[:, 0] = np.stack([cx + b, cy + b], axis=1)
+    uv[:, 1] = np.stack([cx + b + s, cy + b], axis=1)
+    uv[:, 2] = np.stack([cx + b, cy + b + s], axis=1)
+    uv_faces = np.arange(3 * F, dtype=np.int64).reshape(F, 3)
+    return (uv.reshape(-1, 2).astype(np.float32), uv_faces,
+            faces.reshape(-1).astype(np.int64))
 
 
 @dataclass
@@ -79,6 +100,26 @@ class TetMesh:
         if "edge_nbrs" not in self._cache:
             self._cache["edge_nbrs"] = triangle_edge_neighbors(self.surface_fid)
         return self._cache["edge_nbrs"]
+
+    def uv_atlas(self):
+        """(uv (U,2) in [0,1], uv_faces (F,3), uv_vid (U,) surface vertex of
+        each UV vertex) of the surface at the current vertices, cached:
+        the chart-based LSCM atlas (``mesh/uv.py``, the reference's
+        xatlas), or, as the JAX package does when the chart pipeline
+        raises, the trivial per-triangle atlas. Prints which was taken."""
+        if "uv" not in self._cache:
+            try:
+                from .uv import chart_uv_atlas
+                atlas = chart_uv_atlas(self.vtx[self.surface_vid],
+                                       self.surface_fid)
+                print(f"uv atlas: charts, {atlas[0].shape[0]} uv vertices",
+                      flush=True)
+            except Exception as e:
+                atlas = trivial_uv_atlas(self.surface_fid)
+                print(f"uv atlas: the chart atlas failed ({e!r}); the "
+                      f"trivial per-triangle atlas is taken", flush=True)
+            self._cache["uv"] = atlas
+        return self._cache["uv"]
 
     def update_vtx_pos(self, vtx: np.ndarray) -> None:
         self.vtx = np.asarray(vtx, dtype=np.float64).reshape(-1, 3).copy()

@@ -8,23 +8,26 @@ silhouette gradient.
   update = -lr(count) * (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps)
   lr(c) = lr0 * ((1 - alpha) * (1 + cos(pi * min(c, T) / T)) / 2 + alpha)
 
-with alpha = eta_min / lr0 as the JAX trainer sets it. Functional, like
-``adam_uniform``: ``update_fn(grads, state) -> (updates, state)``; every
-scalar stays a tensor on the parameter's device.
+with alpha = eta_min / lr0 as the JAX trainer sets it, component by
+component of every leaf. Functional, like ``adam_uniform``:
+``update_fn(grads, state) -> (updates, state)`` on a tensor or a dict of
+them; every scalar stays a tensor on the parameter's device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Union
+from typing import Any, Callable, NamedTuple, Union
 
 import torch
+
+from ..utils.tree import tree_leaves, tree_map
 
 
 class AdamState(NamedTuple):
     count: torch.Tensor        # int32 — completed updates (optax's count)
-    mu: torch.Tensor           # first moment, like the parameter
-    nu: torch.Tensor           # second moment
+    mu: Any                    # first moment, like the parameters
+    nu: Any                    # second moment
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int,
@@ -47,25 +50,28 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
 
 def adam(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-    """(init_fn, update_fn) for Adam on one parameter tensor."""
+    """(init_fn, update_fn) for Adam on a tensor or a dict of them."""
 
-    def init_fn(params: torch.Tensor) -> AdamState:
-        return AdamState(count=torch.zeros((), dtype=torch.int32,
-                                           device=params.device),
-                         mu=torch.zeros_like(params),
-                         nu=torch.zeros_like(params))
+    def init_fn(params) -> AdamState:
+        dev = tree_leaves(params)[0].device
+        return AdamState(count=torch.zeros((), dtype=torch.int32, device=dev),
+                         mu=tree_map(torch.zeros_like, params),
+                         nu=tree_map(torch.zeros_like, params))
 
-    def update_fn(grads: torch.Tensor, state: AdamState):
-        dev = grads.device
-        mu = (1.0 - b1) * grads + b1 * state.mu
-        nu = (1.0 - b2) * (grads * grads) + b2 * state.nu
+    def update_fn(grads, state: AdamState):
+        dev = tree_leaves(grads)[0].device
+        mu = tree_map(lambda m, g: (1.0 - b1) * g + b1 * m, state.mu, grads)
+        nu = tree_map(lambda v, g: (1.0 - b2) * (g * g) + b2 * v, state.nu,
+                      grads)
         count = state.count + 1
         n = count.to(torch.float32)
-        mu_hat = mu / (1.0 - torch.pow(torch.tensor(b1, device=dev), n))
-        nu_hat = nu / (1.0 - torch.pow(torch.tensor(b2, device=dev), n))
+        c1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), n)
+        c2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), n)
         lr = learning_rate(state.count) if callable(learning_rate) \
             else torch.tensor(learning_rate, device=dev)
-        updates = -lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+        updates = tree_map(
+            lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)),
+            mu, nu)
         return updates, AdamState(count=count, mu=mu, nu=nu)
 
     return init_fn, update_fn

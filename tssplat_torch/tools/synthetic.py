@@ -3,6 +3,7 @@ pass (``tssplat_tpu/tools/synthetic.py``), the dataset writer, and the
 scenes built on them:
 
   render_views_of_mesh          alpha, depth and normal images
+  render_rgb_of_mesh            the Lambertian colour, antialiased
   write_synthetic_dataset       the on-disk layout MitsubaImgDataset reads
   write_multisphere_key_points  the key points of multisphere_scene
   bench_scene                   the repository's geometry-stage benchmark
@@ -31,7 +32,8 @@ from ..mesh.io import load_obj
 from ..mesh.spheres import icosphere, tet_sphere
 from ..mesh.surface import triangle_edge_neighbors
 from ..mesh.tetmesh import TetMesh
-from ..ops.rasterize import (antialias_silhouette, interpolate, rasterize,
+from ..ops.rasterize import (antialias_color, antialias_silhouette,
+                             interpolate, rasterize,
                              rasterize_silhouette_with_rows)
 from ..ops.transform import fibonacci_views, transform_pos
 
@@ -80,6 +82,33 @@ def render_views_of_mesh(verts, faces, mvp, campos, resolution: int,
     return alpha, depth, nrm * fg
 
 
+@torch.no_grad()
+def render_rgb_of_mesh(verts, faces, mvp, resolution: int,
+                       light_dir=(0.3, 0.4, 0.85),
+                       base_color=(0.8, 0.8, 0.8),
+                       device: DeviceLike = None) -> torch.Tensor:
+    """Lambertian colour (B,H,W,3) of a fixed surface mesh, as the JAX
+    writer shades it (tools/synthetic.py:60-69): clip(|n . l|, 0.2, 1) x
+    base_color at the foreground pixels (n the interpolated, normalised
+    vertex normal, l the normalised light direction), then the colour
+    antialias."""
+    dev = resolve_device(device)
+    faces, _, pos = _corner_clip(verts, faces, mvp, dev)
+    rast, _ = rasterize(pos, (int(resolution), int(resolution)))
+    v = torch.as_tensor(np.asarray(verts), dtype=torch.float32, device=dev)
+    f = torch.as_tensor(faces, device=dev)
+    nrm = interpolate(compute_vertex_normals(v, f)[f.reshape(-1)], rast)
+    nrm = nrm / torch.clamp_min(torch.linalg.norm(nrm, dim=-1, keepdim=True),
+                                1e-8)
+    ld = np.asarray(light_dir, np.float32)
+    ld = torch.as_tensor(ld / np.linalg.norm(ld), device=dev)
+    lam = torch.clamp(torch.abs(torch.sum(nrm * ld, dim=-1, keepdim=True)),
+                      0.2, 1.0)
+    color = lam * torch.tensor(base_color, dtype=torch.float32, device=dev)
+    nbrs = torch.as_tensor(triangle_edge_neighbors(faces), device=dev)
+    return antialias_color(color * (rast[..., 3:4] > 0), rast, pos, nbrs)
+
+
 def write_synthetic_dataset(out_dir: str, verts, faces, n_views: int = 120,
                             resolution: int = 512, radius: float = 4.0,
                             write_depth: bool = True,
@@ -93,26 +122,20 @@ def write_synthetic_dataset(out_dir: str, verts, faces, n_views: int = 120,
     ``normal_{i}.npy`` (normal with alpha as its 4th channel), rendered
     8 views at a time (as the JAX writer renders them) on ``device``.
 
-    The alpha, depth and normal images, which the geometry stage reads,
-    are the JAX writer's. The RGB channels are the Lambertian shade
-    clip(|n . l|, 0.2, 1) x 0.8 at foreground pixels (l = (0.3, 0.4, 0.85)
-    normalised), without the JAX writer's colour antialias: the port's
-    colour antialias comes with the texture stage (ROADMAP queue 1 item
-    3)."""
+    The images are the JAX writer's: the RGB channels are
+    ``render_rgb_of_mesh``'s antialiased Lambertian shade, the alpha, depth
+    and normal ``render_views_of_mesh``'s."""
     from PIL import Image
 
     os.makedirs(out_dir, exist_ok=True)
     mvp, mv, campos = fibonacci_views(n_views, radius=radius)
-    ld = np.asarray([0.3, 0.4, 0.85], np.float32)
-    ld = ld / np.linalg.norm(ld)
     vc = 8
     for s in range(0, n_views, vc):
         alpha, depth, normal = (t.cpu().numpy() for t in render_views_of_mesh(
             verts, faces, mvp[s:s + vc], campos[s:s + vc], resolution,
             device=device))
-        fg = np.any(normal != 0.0, axis=-1, keepdims=True)
-        rgb = np.clip(np.abs(normal @ ld), 0.2, 1.0)[..., None] \
-            * np.full(3, 0.8, np.float32) * fg
+        rgb = render_rgb_of_mesh(verts, faces, mvp[s:s + vc], resolution,
+                                 device=device).cpu().numpy()
         rgba = np.concatenate([rgb, alpha], axis=-1)
         for j in range(alpha.shape[0]):
             i = s + j

@@ -1,7 +1,10 @@
-"""Geometry-stage training: the train step and the driver (port of
-``tssplat_tpu/train.py``, the geometry stage).
+"""Training: the train step and the driver (port of
+``tssplat_tpu/train.py``: the geometry and the texture stage).
 
     python -m tssplat_torch.train --config configs/gso.yaml [key.sub=val ...]
+    python -m tssplat_torch.train --config configs/gso.yaml \
+        fitting_stage=texture material_type=ExplicitMaterial \
+        geometry.initial_mesh_path=<final/ of a geometry run>
 
 One step: render the views' antialiased silhouettes (and, with
 ``fit_depth`` / ``fit_normal``, their depth and normal images) and the
@@ -15,11 +18,22 @@ snapshot taken after the update (reference trainer.py:132-140). With
 are recomputed in the backward, all but the visibility pass's outputs
 (train.py:270-313).
 
+The texture stage (``fitting_stage: texture``) freezes the geometry and
+fits a material's parameters (a dict of tensors) to the RGB targets: L1 x
+20 on the colour-antialiased render over the background (x 100 in the
+loss), by one of three paths, chosen as the JAX package chooses them
+(train.py:592-667): the exact path over every view with the visibility
+cached once (``materials/exact_stage.py``), the sampled path
+(``texture_sample_px`` foreground pixels a view, from a cache or a top-k of
+random scores), or the dense path, which renders the batch every step (and
+warns).
+
 ``train(cfg)`` is the driver of ``tssplat_tpu/train.py:409-861``: the
-geometry and the data loader from the config's registries, the optimizer
-and its schedule, the permute-surface scheduler, the depth switch, logs,
-exports, checkpoints, resume and the SIGTERM/SIGINT finish. Knobs of parts
-not yet ported raise ``NotImplementedError`` (``_refuse_unported``).
+geometry, the material and the data loader from the config's registries,
+the optimizer and its schedule, the permute-surface scheduler, the depth
+switch, logs, exports (the textured OBJ bake after the texture stage),
+checkpoints, resume and the SIGTERM/SIGINT finish. Knobs of parts not yet
+ported raise ``NotImplementedError`` (``_refuse_unported``).
 """
 
 from __future__ import annotations
@@ -36,13 +50,16 @@ from torch.utils.checkpoint import checkpoint
 
 from . import data as _data  # noqa: F401 — registers the data loaders
 from . import geometry as _geometry  # noqa: F401 — registers geometries
-from .config import load_config, load_dataloader, load_geometry
+from . import materials as _materials  # noqa: F401 — registers materials
+from .config import (load_config, load_dataloader, load_geometry,
+                     load_material)
 from .device import DeviceLike, resolve_device
 from .geometry.tet_geometry import (GeometryStatics,
                                     LinearInterpolateScheduler,
                                     geometry_forward,
                                     permute_surface_vertices)
 from .ops.binning import default_tile_capacity, validate_tile_capacity
+from .ops.rasterize import interpolate, rasterize
 from .ops.transform import transform_pos
 from .optim import (adam, adam_uniform, apply_updates, cosine_annealing_lr,
                     cosine_decay_schedule)
@@ -50,44 +67,61 @@ from .render.pipeline import render_views, render_visibility
 from .utils.checkpoint import (latest_checkpoint_step, restore_checkpoint,
                                save_checkpoint)
 from .utils.profiling import ThroughputMeter
+from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class TrainState(NamedTuple):
-    params: torch.Tensor               # tet_v (N,3)
-    opt_state: Any                     # AdamUniformState or AdamState
+    params: Any            # tet_v (N,3), or the material's dict of tensors
+    opt_state: Any         # AdamUniformState or AdamState
     best_loss: torch.Tensor            # scalar f32
     best_iter: torch.Tensor            # scalar int32
-    best_params: torch.Tensor
+    best_params: Any
 
 
-def init_train_state(params: torch.Tensor, init_fn: Callable) -> TrainState:
-    params = params.detach().clone()
+def init_train_state(params, init_fn: Callable) -> TrainState:
+    params = tree_map(lambda p: p.detach().clone(), params)
+    dev = tree_leaves(params)[0].device
     return TrainState(
         params=params, opt_state=init_fn(params),
-        best_loss=torch.tensor(float("inf"), device=params.device),
-        best_iter=torch.zeros((), dtype=torch.int32, device=params.device),
-        best_params=params.clone())
+        best_loss=torch.tensor(float("inf"), device=dev),
+        best_iter=torch.zeros((), dtype=torch.int32, device=dev),
+        best_params=tree_map(torch.clone, params))
 
 
 # the batch entries the loss reads, all view-major
-_VIEW_KEYS = ("mvp", "campos", "img", "d", "n")
+_VIEW_KEYS = ("mvp", "campos", "img", "d", "n", "background")
 
 
 def _img_loss(statics: GeometryStatics, tet_v: torch.Tensor, batch: dict,
               it: int, resolution: int, is_ortho: bool, fit_depth: bool,
               fit_normal: bool, normal_weight: float,
-              tile_k: Optional[int], vis=None):
-    """(img_loss, energy, n_drop) of the views of ``batch``."""
+              tile_k: Optional[int], vis=None,
+              material_fn: Optional[Callable] = None, mat_params=None):
+    """(img_loss, energy, n_drop) of the views of ``batch``: the MSE of the
+    silhouette, or with ``material_fn`` the L1 of the colour against the
+    target RGB (and the depth term's L1 instead of its MSE), as
+    train.py:131-165."""
+    texture = material_fn is not None
     out = render_views(tet_v, statics, batch["mvp"], it, resolution,
+                       only_alpha=not texture, material_fn=material_fn,
+                       material_params=mat_params,
+                       background=batch.get("background"),
                        campos=batch.get("campos"), fit_depth=fit_depth,
                        fit_normal=fit_normal, is_ortho=is_ortho,
                        tile_k=tile_k, vis=vis)
     img = batch["img"]
-    img_loss = torch.mean((out.shaded[..., -1] - img[..., -1]) ** 2) * 20.0
+    if texture:
+        img_loss = torch.mean(torch.abs(out.shaded[..., :3]
+                                        - img[..., :3])) * 20.0
+    else:
+        img_loss = torch.mean((out.shaded[..., -1] - img[..., -1]) ** 2) \
+            * 20.0
     if fit_depth:
         a = img[..., -1]
         d_err = out.depth[..., -1] * a - batch["d"][..., -1] * a
-        img_loss = img_loss + 100.0 * torch.mean(d_err ** 2)
+        img_loss = img_loss + 100.0 * (torch.mean(torch.abs(d_err))
+                                       if texture
+                                       else torch.mean(d_err ** 2))
     if fit_normal:
         a = img[..., -1:]
         img_loss = img_loss + normal_weight * torch.mean(
@@ -99,8 +133,13 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
                   batch: dict, it: int, resolution: int,
                   is_ortho: bool = False, *, fit_depth: bool = False,
                   fit_normal: bool = False, normal_weight: float = 10.0,
-                  tile_k: Optional[int] = None, view_chunk: int = 0):
-    """(loss, img_loss, reg, n_drop, d loss / d tet_v) of one batch.
+                  tile_k: Optional[int] = None, view_chunk: int = 0,
+                  material_fn: Optional[Callable] = None, mat_params=None):
+    """(loss, img_loss, reg, n_drop, gradient) of one batch: the gradient
+    w.r.t. tet_v, or, with ``material_fn`` and ``mat_params`` (the texture
+    stage: the batch's "background" composited under the colour, tet_v
+    frozen, no energy), w.r.t. the material's parameters (a dict like
+    them).
 
     With ``view_chunk`` dividing the B views (and smaller than B) the loss
     runs chunk by chunk, as JAX's scan over ``jax.checkpoint``ed chunks
@@ -110,15 +149,26 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
     backward (``torch.utils.checkpoint``), so peak memory is one chunk's
     activations. img_loss is the mean of the chunks' losses, n_drop their
     sum, and the energy is added once, outside the chunks."""
-    x = tet_v.detach().requires_grad_(True)
+    texture = material_fn is not None
+    if texture:
+        statics = statics._replace(energy=None)
+        x = tet_v.detach()
+        params = tree_map(lambda p: p.detach().requires_grad_(True),
+                          mat_params)
+        wrt = tree_leaves(params)
+    else:
+        x = tet_v.detach().requires_grad_(True)
+        params, wrt = None, [x]
     opts = (resolution, is_ortho, fit_depth, fit_normal, normal_weight,
             tile_k)
+    mat = dict(material_fn=material_fn, mat_params=params)
     B = batch["mvp"].shape[0]
     if view_chunk and B % view_chunk == 0 and B > view_chunk:
         no_energy = statics._replace(energy=None)
 
         def chunk_loss(x, cb, vis):
-            il, _, nd = _img_loss(no_energy, x, cb, it, *opts, vis=vis)
+            il, _, nd = _img_loss(no_energy, x, cb, it, *opts, vis=vis,
+                                  **mat)
             return il, nd
 
         total = n_drop = None
@@ -126,7 +176,8 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
             cb = {k: batch[k][s:s + view_chunk] for k in _VIEW_KEYS
                   if batch.get(k) is not None}
             vis = render_visibility(x, statics, cb["mvp"], resolution,
-                                    shaded=fit_depth or fit_normal,
+                                    shaded=fit_depth or fit_normal
+                                    or texture,
                                     is_ortho=is_ortho, tile_k=tile_k)
             # nothing in a chunk draws random numbers: no RNG state to keep
             il, nd = checkpoint(chunk_loss, x, cb, vis, use_reentrant=False,
@@ -136,31 +187,175 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
         img_loss = total / (B // view_chunk)
         reg = geometry_forward(x, statics, it).energy
     else:
-        img_loss, reg, n_drop = _img_loss(statics, x, batch, it, *opts)
+        img_loss, reg, n_drop = _img_loss(statics, x, batch, it, *opts,
+                                          **mat)
     loss = img_loss * 100.0 + reg
-    (grad,) = torch.autograd.grad(loss, x)
+    grads = torch.autograd.grad(loss, wrt)
+    grad = tree_unflatten(params, list(grads)) if texture else grads[0]
     return loss.detach(), img_loss.detach(), reg.detach(), n_drop, grad
+
+
+def _step_generator(tag: int, it: int) -> torch.Generator:
+    """A CPU generator seeded by (tag, it): the draws of iteration ``it``
+    are the same on every device and after a resume (JAX folds ``it``
+    into PRNGKey(tag); its bits cannot be reproduced here)."""
+    return torch.Generator().manual_seed((int(tag) << 32) + int(it))
+
+
+def texture_sample_slots(count: torch.Tensor, S: int, it: int
+                         ) -> torch.Tensor:
+    """(B,S) int64: ``S`` uniform slots below each view's foreground count
+    (B,), drawn from the generator of (17, it) (train.py:192-195)."""
+    u = torch.rand((count.shape[0], S),
+                   generator=_step_generator(17, it)).to(count.device)
+    slot = torch.floor(u * count[:, None].to(u.dtype)).to(torch.int64)
+    return torch.minimum(slot, torch.clamp_min(count[:, None] - 1, 0))
+
+
+def texture_sample_scores(B: int, n_px: int, it: int,
+                          device: DeviceLike = "cpu") -> torch.Tensor:
+    """(B, n_px) uniform scores of the uncached sampled loss, from the
+    generator of (17, it) (train.py:218)."""
+    return torch.rand((B, n_px), generator=_step_generator(17, it)).to(
+        device)
+
+
+def sampled_texture_loss(material_fn: Callable, mat_params, batch: dict,
+                         it: int, S: int, *, cache: Optional[dict] = None,
+                         statics: Optional[GeometryStatics] = None,
+                         tet_v: Optional[torch.Tensor] = None,
+                         resolution: int = 0, is_ortho: bool = False,
+                         tile_k: Optional[int] = None, slots=None,
+                         scores=None, grad_u=None):
+    """(img_loss, 0) of the sampled texture loss (``_sampled_texture_loss``,
+    train.py:170-235): L1 x 20 over ``S`` random foreground pixels a view,
+    without the antialias term. With ``cache`` (build_texture_sample_cache)
+    and the batch's "view_idx" the pixels are cached rows at
+    ``texture_sample_slots``; without it the views are rasterized and the
+    pixels are the S best of ``texture_sample_scores`` + 10 on background.
+    ``slots`` / ``scores`` replace the draws (a test feeds JAX's);
+    ``grad_u``, or else the generator of (23, it), drives the encoding's
+    stochastic table gradient where the material enables it."""
+    if cache is not None and "view_idx" in batch:
+        vi = batch["view_idx"].long()
+        pos_v, gt_v = cache["positions"][vi], cache["gt"][vi]
+        cnt = cache["count"][vi]
+        B = vi.shape[0]
+        slot = texture_sample_slots(cnt, S, it) if slots is None else slots
+        pos_s = torch.take_along_dim(pos_v, slot[..., None], dim=1)
+        gt_s = torch.take_along_dim(gt_v, slot[..., None], dim=1)
+        m_s = (cnt > 0)[:, None].to(torch.float32).expand(B, S)
+    else:
+        mvp = batch["mvp"]
+        B, res = mvp.shape[0], int(resolution)
+        with torch.no_grad():
+            v_corner = tet_v[statics.corner_vid]
+            pos_clip = transform_pos(mvp, v_corner, is_ortho=is_ortho)
+            rast, _ = rasterize(pos_clip, (res, res), k=tile_k)
+            positions = interpolate(v_corner, rast)
+        mask = (rast[..., 3] > 0).to(torch.float32).reshape(B, -1)
+        r = texture_sample_scores(B, res * res, it, mvp.device) \
+            if scores is None else scores
+        idx = torch.topk(-(r + (1.0 - mask) * 10.0), S).indices   # (B,S)
+        pos_s = torch.take_along_dim(positions.reshape(B, -1, 3),
+                                     idx[..., None], dim=1)
+        img = batch["img"]
+        gt_s = torch.take_along_dim(img.reshape(B, -1, img.shape[-1]),
+                                    idx[..., None], dim=1)[..., :3]
+        m_s = torch.take_along_dim(mask, idx, dim=1)
+    if grad_u is None:
+        color = material_fn(mat_params, pos_s, it,
+                            grad_gen=_step_generator(23, it))
+    else:
+        color = material_fn(mat_params, pos_s, it, grad_u=grad_u)
+    n_fg = torch.clamp_min(torch.sum(m_s), 1.0)
+    img_loss = torch.sum(torch.abs(color - gt_s) * m_s[..., None]) \
+        / (3.0 * n_fg) * 20.0
+    return img_loss, torch.zeros((), device=img_loss.device)
+
+
+@torch.no_grad()
+def build_texture_sample_cache(statics: GeometryStatics, tet_v: torch.Tensor,
+                               mvp: torch.Tensor, img: torch.Tensor,
+                               resolution: int, is_ortho: bool = False,
+                               tile_k: Optional[int] = None) -> dict:
+    """The sampled texture stage's frozen-geometry cache
+    (``build_texture_sample_cache``, train.py:56): each dataset view
+    rasterized once, its foreground pixels' world positions and target
+    colours compacted in pixel order. Returns {"positions" (n,P,3), "gt"
+    (n,P,3), "count" (n,) int64} with P the largest foreground count;
+    rows past a view's count are zero."""
+    res = int(resolution)
+    v_corner = tet_v[statics.corner_vid]
+    pos_l, gt_l = [], []
+    for i in range(mvp.shape[0]):
+        pc = transform_pos(mvp[i:i + 1], v_corner, is_ortho=is_ortho)
+        rast, _ = rasterize(pc, (res, res), k=tile_k)
+        fg = torch.nonzero(rast[0, ..., 3].reshape(-1) > 0)[:, 0]
+        pos_l.append(interpolate(v_corner, rast)[0].reshape(-1, 3)[fg])
+        gt_l.append(img[i].reshape(-1, img.shape[-1])[fg, :3])
+    count = torch.tensor([p.shape[0] for p in pos_l], device=tet_v.device)
+    P = max(1, int(count.max()))
+
+    def pad(rows):
+        return torch.stack([torch.cat([r, r.new_zeros((P - r.shape[0], 3))])
+                            for r in rows])
+    return {"positions": pad(pos_l), "gt": pad(gt_l), "count": count}
 
 
 def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                     resolution: int, is_ortho: bool = False,
                     fit_depth: bool = False, fit_normal: bool = False,
                     normal_weight: float = 10.0,
-                    tile_k: Optional[int] = None, view_chunk: int = 0):
+                    tile_k: Optional[int] = None, view_chunk: int = 0,
+                    material_fn: Optional[Callable] = None,
+                    tet_v_frozen: Optional[torch.Tensor] = None,
+                    texture_sample_px: int = 0,
+                    texture_cache: Optional[dict] = None,
+                    texture_exact_loss: Optional[Callable] = None):
     """Build ``step(state, batch, it) -> (state, (loss, img_loss, reg,
     n_drop))``. ``batch`` holds "mvp" (B,4,4) and "img" (B,H,W,C) whose
     last channel is the target alpha, plus "campos" (B,3) and "d"
     (B,H,W,1) for ``fit_depth`` and "n" (B,H,W,>=3) for ``fit_normal``, on
     the device of the state. ``tile_k`` is the capped layout's per-tile
     capacity (``validated_tile_k``); ``view_chunk`` as in
-    ``loss_and_grad``."""
+    ``loss_and_grad``.
+
+    With ``material_fn`` the step is the texture stage's: the state's
+    params are the material's, the geometry ``tet_v_frozen`` stays put,
+    and the loss is ``texture_exact_loss(params, it)`` (the batch is not
+    read), else the sampled loss with ``texture_sample_px``, else the
+    dense colour render of the batch (which then needs "background")."""
+    texture = material_fn is not None
+
+    def texture_grads(params, it, batch):
+        x = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        if texture_exact_loss is not None:
+            il, reg = texture_exact_loss(x, it)
+        else:
+            il, reg = sampled_texture_loss(
+                material_fn, x, batch, it, int(texture_sample_px),
+                cache=texture_cache, statics=statics, tet_v=tet_v_frozen,
+                resolution=resolution, is_ortho=is_ortho, tile_k=tile_k)
+        loss = il * 100.0
+        grads = torch.autograd.grad(loss, tree_leaves(x))
+        zero = torch.zeros((), dtype=torch.int64, device=loss.device)
+        return (loss.detach(), il.detach(), reg, zero,
+                tree_unflatten(x, list(grads)))
 
     def step(state: TrainState, batch: dict, it: int):
-        loss, img_loss, reg, n_drop, grads = loss_and_grad(
-            statics, state.params, batch, it, resolution, is_ortho,
-            fit_depth=fit_depth, fit_normal=fit_normal,
-            normal_weight=normal_weight, tile_k=tile_k,
-            view_chunk=view_chunk)
+        if texture and (texture_exact_loss is not None
+                        or texture_sample_px):
+            loss, img_loss, reg, n_drop, grads = texture_grads(
+                state.params, it, batch)
+        else:
+            loss, img_loss, reg, n_drop, grads = loss_and_grad(
+                statics, tet_v_frozen if texture else state.params, batch,
+                it, resolution, is_ortho, fit_depth=fit_depth,
+                fit_normal=fit_normal, normal_weight=normal_weight,
+                tile_k=tile_k, view_chunk=view_chunk,
+                material_fn=material_fn,
+                mat_params=state.params if texture else None)
         with torch.no_grad():
             updates, opt_state = update_fn(grads, state.opt_state)
             params = apply_updates(state.params, updates)
@@ -171,7 +366,8 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                 best_iter=torch.where(better, torch.tensor(
                     it, dtype=torch.int32, device=loss.device),
                     state.best_iter),
-                best_params=torch.where(better, params, state.best_params))
+                best_params=tree_map(lambda c, b: torch.where(better, c, b),
+                                     params, state.best_params))
         return new_state, (loss, img_loss, reg, n_drop)
 
     return step
@@ -249,11 +445,9 @@ def _refuse_unported(cfg) -> None:
     """Raise for every knob whose part of the JAX package is not ported,
     rather than running a different path."""
     stage = cfg.get("fitting_stage", "geometry")
-    if stage != "geometry":
-        _not_ported(f"fitting_stage: {stage}", 3)
-    material = cfg.get("material_type")
-    if material not in (None, "", "None", "none"):
-        _not_ported(f"material_type: {material}", 3)
+    if stage not in ("geometry", "texture"):
+        raise ValueError(f"unknown fitting_stage {stage!r} (geometry or "
+                         f"texture)")
     if int(cfg.get("remesh_every", 0) or 0):
         _not_ported("remesh_every", 4)
     if int(cfg.get("spatial", 0) or 0) > 1:
@@ -267,20 +461,69 @@ def _refuse_unported(cfg) -> None:
         _not_ported("sds", 8)
 
 
+def _exact_texture_loss(cfg, geometry, material, dataloader, resolution,
+                        is_ortho, tile_k, fit_depth, batch_size,
+                        num_forward_per_iter):
+    """The exact texture path's loss, or None after the loud warning with
+    JAX's reason (train.py:604-666): depth or normal terms, more than one
+    forward or a batch other than every view, an encoding other than a
+    plain HashGrid, or more foreground pixels than texture_exact_max_px."""
+    from .materials.exact_stage import (build_texture_exact_cache,
+                                        build_texture_exact_loss)
+    n_views = int(dataloader.data_all["mvp"].shape[0])
+    reason = None
+    if fit_depth or bool(cfg.get("fit_normal", False)):
+        reason = ("the stage fits depth/normal terms (exact path computes "
+                  "the color L1 + AA only)")
+    elif num_forward_per_iter != 1 or batch_size != n_views:
+        reason = (f"the exact path needs ONE forward covering every dataset "
+                  f"view (batch_size == {n_views} views, "
+                  f"num_forward_per_iter == 1; got batch_size={batch_size}, "
+                  f"num_forward_per_iter={num_forward_per_iter})")
+    else:
+        reasons = []
+        cache = build_texture_exact_cache(
+            geometry, material, dataloader.data_all, resolution,
+            is_ortho=is_ortho, tile_k=tile_k,
+            max_px=int(cfg.get("texture_exact_max_px", 4_000_000)),
+            reason_out=reasons)
+        if cache is not None:
+            print(f"exact texture fast path: {cache['n']} views, "
+                  f"P={cache['P']} fg pixels/view, {cache['xc'].shape[0]} "
+                  f"in all; visibility cached, table gradient by "
+                  f"scatter-add", flush=True)
+            return build_texture_exact_loss(material, geometry.statics,
+                                            cache)
+        reason = reasons[0] if reasons else "cache build failed"
+    print(f"WARNING: exact texture fast path DISABLED — {reason}. Falling "
+          f"back to the dense autodiff path (every step renders its views "
+          f"again).", flush=True)
+    return None
+
+
 def train(cfg, device: DeviceLike = None):
-    """Run the geometry stage of ``cfg`` on ``device`` (``cuda`` unless the
-    caller asks for the CPU); returns (state, geometry). ``data_parallel``
-    is accepted and has nothing to do on one device."""
+    """Run the stage ``fitting_stage`` of ``cfg`` (geometry or texture) on
+    ``device`` (``cuda`` unless the caller asks for the CPU); returns
+    (state, geometry). ``data_parallel`` is accepted and has nothing to do
+    on one device."""
     dev = resolve_device(device)
     _refuse_unported(cfg)
     verbose = cfg.get("verbose", False)
+    texture = cfg.get("fitting_stage", "geometry") == "texture"
     out_path = cfg.output_path
     os.makedirs(os.path.join(out_path, "final"), exist_ok=True)
 
     geometry_cfg = dict(cfg.geometry)
-    geometry_cfg["optimize_geo"] = True
+    geometry_cfg["optimize_geo"] = not texture
     geometry_cfg.setdefault("output_path", out_path)
     geometry = load_geometry(cfg.geometry_type)(geometry_cfg, device=dev)
+
+    material = material_fn = None
+    if texture:
+        # the material's config block may be absent: its defaults
+        material = load_material(cfg.material_type)(cfg.get("material"),
+                                                    device=dev)
+        material_fn = material.apply_fn
 
     dataloader = load_dataloader(cfg.dataloader_type)(cfg.data, device=dev)
     num_forward_per_iter = dataloader.num_forward_per_iter
@@ -309,7 +552,8 @@ def train(cfg, device: DeviceLike = None):
         permute_scheduler = LinearInterpolateScheduler(
             **cfg.permute_surface_v_param)
 
-    state = init_train_state(geometry.tet_v, init_fn)
+    state = init_train_state(material.params if texture else geometry.tet_v,
+                             init_fn)
 
     fit_depth_cfg = bool(cfg.get("fit_depth", False))
     fit_depth_start = int(cfg.get("fit_depth_starting_iter", 0))
@@ -346,6 +590,24 @@ def train(cfg, device: DeviceLike = None):
         print(f"view microbatching: {batch_size // view_chunk} chunks of "
               f"{view_chunk} views", flush=True)
 
+    # the texture stage's paths (train.py:592-666): the sampled loss with
+    # its frozen-geometry cache, else the exact path, else the dense one
+    sample_px = int(cfg.get("texture_sample_px", 0))
+    texture_cache = texture_exact = None
+    if texture and sample_px and bool(cfg.get("texture_cache", True)):
+        texture_cache = build_texture_sample_cache(
+            geometry.statics, geometry.tet_v, dataloader.data_all["mvp"],
+            dataloader.data_all["img"], resolution, is_ortho=is_ortho,
+            tile_k=tile_k)
+        print(f"texture cache: {texture_cache['positions'].shape[0]} views, "
+              f"P={texture_cache['positions'].shape[1]} fg pixels",
+              flush=True)
+    if texture and not sample_px and \
+            bool(cfg.get("texture_exact_fast", True)):
+        texture_exact = _exact_texture_loss(
+            cfg, geometry, material, dataloader, resolution, is_ortho,
+            tile_k, fit_depth_cfg, batch_size, num_forward_per_iter)
+
     def get_step(fit_depth_on: bool):
         if fit_depth_on not in steps:
             steps[fit_depth_on] = make_train_step(
@@ -353,7 +615,10 @@ def train(cfg, device: DeviceLike = None):
                 is_ortho=is_ortho, fit_depth=fit_depth_on,
                 fit_normal=bool(cfg.get("fit_normal", False)),
                 normal_weight=float(cfg.get("fit_normal_weight", 10.0)),
-                tile_k=tile_k, view_chunk=view_chunk)
+                tile_k=tile_k, view_chunk=view_chunk,
+                material_fn=material_fn, tet_v_frozen=geometry.tet_v,
+                texture_sample_px=sample_px, texture_cache=texture_cache,
+                texture_exact_loss=texture_exact)
         return steps[fit_depth_on]
 
     meter = ThroughputMeter()
@@ -384,7 +649,7 @@ def train(cfg, device: DeviceLike = None):
                       f"(resume with resume=true)", flush=True)
                 break
 
-            if permute_scheduler is not None:
+            if permute_scheduler is not None and not texture:
                 dev_val = permute_scheduler(it)
                 if dev_val is not None:
                     state = state._replace(params=permute_surface_vertices(
@@ -393,8 +658,10 @@ def train(cfg, device: DeviceLike = None):
 
             step_fn = get_step(fit_depth_cfg and fit_depth_start < it)
             for forw_id in range(num_forward_per_iter):
-                batch = {k: v for k, v in dataloader(it, forw_id).items()
-                         if k not in ("resolution", "spp")}
+                # the exact texture path reads no batch: none is gathered
+                batch = {} if texture_exact is not None else {
+                    k: v for k, v in dataloader(it, forw_id).items()
+                    if k not in ("resolution", "spp")}
                 state, (loss, img_loss, reg, n_drop) = step_fn(state, batch,
                                                                it)
                 n_steps += 1
@@ -419,7 +686,7 @@ def train(cfg, device: DeviceLike = None):
             if checkpoint_every and it and it % checkpoint_every == 0:
                 save_checkpoint(ckpt_dir, it, state, keep=keep)
 
-            if it % export_every == 0:
+            if it % export_every == 0 and not texture:
                 geometry.set_tet_v(state.params)
                 # the capacity on the deformed geometry: growth rebuilds
                 # the steps, shrink is ignored (train.py:812-828)
@@ -447,8 +714,18 @@ def train(cfg, device: DeviceLike = None):
           f"{int(state.best_iter)}")
     print(f"iters/sec: {n_steps / max(dt, 1e-9):.3f}")
 
-    geometry.set_tet_v(state.params)
-    geometry.export(os.path.join(out_path, "final"), "final", save_npy=True)
+    final = os.path.join(out_path, "final")
+    if not texture:
+        geometry.set_tet_v(state.params)
+    geometry.export(final, "final", save_npy=True)
+    if material is not None:
+        # the material and the textured OBJ bake (train.py:850-860;
+        # reference trainer.py:187-189)
+        from .materials.export import export_textured_obj
+        material.params = state.params
+        material.export(final, "material")
+        export_textured_obj(geometry, material, final, "material",
+                            step=total_iters)
     return state, geometry
 
 

@@ -9,7 +9,8 @@ checkpoints whole; the newest ``keep`` are kept.
 
 The format is the port's own (the JAX package writes orbax checkpoints):
 ``torch.save`` of plain dicts of CPU tensors, each NamedTuple stored as
-{"type": class name, "fields": {...}}. ``torch.load`` reads it with
+{"type": class name, "fields": {...}}, a dict of tensors (the texture
+stage's material parameters and their moments) as a dict. ``torch.load`` reads it with
 ``weights_only=True``, which refuses arbitrary classes; ``restore_checkpoint``
 rebuilds the NamedTuples from the template's types and places every tensor
 on the template's device.
@@ -32,6 +33,8 @@ def _plain(node: Any) -> Any:
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         return {"type": type(node).__name__,
                 "fields": {k: _plain(v) for k, v in node._asdict().items()}}
+    if isinstance(node, dict):
+        return {k: _plain(v) for k, v in node.items()}
     return node
 
 
@@ -49,6 +52,11 @@ def _rebuild(plain: Any, template: Any) -> Any:
                              f"has {name}")
         return type(template)(**{k: _rebuild(plain["fields"][k], v)
                                  for k, v in template._asdict().items()})
+    if isinstance(template, dict):
+        if not isinstance(plain, dict) or set(plain) != set(template):
+            raise ValueError(f"checkpoint holds {plain!r:.80} where the "
+                             f"template has a dict of {sorted(template)}")
+        return {k: _rebuild(plain[k], v) for k, v in template.items()}
     return plain
 
 
