@@ -415,3 +415,82 @@ def test_exact_texture_step_on_the_card_matches_cpu(tmp_path):
         assert scale > 0
         tol = (1e-3 if i == 0 else 1e-4) * scale
         assert float((a - b).abs().max()) <= tol, (i, scale)
+
+
+def _dumbbell_and_dent():
+    import numpy as np
+    from tssplat_torch.mesh.spheres import icosphere
+
+    sv, sf = icosphere(subdivisions=3)
+    v = np.concatenate([sv * 0.3 + [-0.45, 0, 0], sv * 0.3 + [0.45, 0, 0]])
+    f = np.concatenate([sf, sf + sv.shape[0]])
+    dent = sv * 0.4
+    cap = dent[:, 2] > 0.28
+    dent[cap] -= np.asarray([0, 0, 0.25]) * (dent[cap, 2:3] / 0.4)
+    return (v, f), (dent, sf)
+
+
+@pytest.mark.cuda
+def test_queries_on_the_card_match_cpu():
+    """ray_mesh_hit_full and signed_distance (tssplat_torch/ops/queries.py)
+    on the card against the CPU on the dumbbell, 20,000 seeded rays and
+    points: hit and miss and ids agree but on <= 0.02% of the rays, t to
+    rtol 1e-5, |sd| to 1e-5, signs but on <= 0.1% of the points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tssplat_torch.ops.queries import ray_mesh_hit_full, signed_distance
+
+    (v, f), _ = _dumbbell_and_dent()
+    rng = np.random.default_rng(0)
+    o = rng.uniform(-0.8, 0.8, size=(20000, 3)).astype(np.float32)
+    d = rng.normal(size=(20000, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    p = rng.uniform(-0.9, 0.9, size=(20000, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        vt = torch.tensor(v, dtype=torch.float32, device=dev)
+        ft = torch.tensor(f, device=dev)
+        hits = [x.cpu().numpy() for x in ray_mesh_hit_full(
+            torch.tensor(o, device=dev), torch.tensor(d, device=dev), vt, ft)]
+        out[dev] = hits, signed_distance(torch.tensor(p, device=dev), vt,
+                                         ft).cpu().numpy()
+    (hg, sg), (hc, sc) = out["cuda"], out["cpu"]
+    both = np.isfinite(hg[0]) & np.isfinite(hc[0])
+    assert (np.isfinite(hg[0]) != np.isfinite(hc[0])).sum() <= 4
+    assert (both & (hg[1] != hc[1])).sum() <= 4 and both.sum() > 2000
+    np.testing.assert_allclose(hg[0][both], hc[0][both], rtol=1e-5)
+    np.testing.assert_allclose(np.abs(sg), np.abs(sc), rtol=0, atol=1e-5)
+    assert ((np.sign(sg) != np.sign(sc)) & (np.abs(sc) > 1e-4)).sum() <= 20
+
+
+@pytest.mark.cuda
+def test_skeleton_step_and_remesh_on_the_card_match_cpu():
+    """One smoothed_sdf_grad step (tools/init_spheres.py) within 1e-4 of
+    its max and tet_remesh_from_surface (mesh/remesh.py) of the dented
+    sphere (edge 0.15, 20³) with counts within 2% of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tssplat_torch.mesh.remesh import tet_remesh_from_surface
+    from tssplat_torch.tools.init_spheres import smoothed_sdf_grad
+
+    (v, f), (dent, df) = _dumbbell_and_dent()
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-0.6, 0.6, size=(2000, 3)).astype(np.float32)
+    noise = np.clip(0.003 * rng.standard_normal((2000, 20, 3)), None,
+                    0.01).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = smoothed_sdf_grad(
+            torch.tensor(x, device=dev), torch.tensor(noise, device=dev),
+            torch.tensor(v, dtype=torch.float32, device=dev),
+            torch.tensor(f, device=dev)).cpu().numpy()
+        out[dev] = g, tet_remesh_from_surface(dent, df, 0.15, grid_dim=20,
+                                              device=dev)
+    (gg, (vg, tg)), (gc, (vc, tc)) = out["cuda"], out["cpu"]
+    assert np.abs(gg - gc).max() <= 1e-4 * np.abs(gc).max()
+    assert abs(vg.shape[0] - vc.shape[0]) <= 0.02 * vc.shape[0]
+    assert abs(tg.shape[0] - tc.shape[0]) <= 0.02 * tc.shape[0]

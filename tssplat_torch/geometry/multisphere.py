@@ -16,7 +16,9 @@ length comes from the smallest radius so every sphere gets >= ~100 surface
 triangles, clamped to [0.015, 0.03]. The TetWild subprocess path of the
 JAX package is not ported: configuring an existing ``tetwild_exec`` raises.
 ``export`` also writes the per-sphere vertex/element arrays and the index
-JSONs (reference :373-382).
+JSONs (reference :373-382). ``remesh`` re-derives the per-sphere partition
+on the new tets (``repartition_spheres``) and keeps the 1/num_spheres
+smoothness scale.
 """
 
 from __future__ import annotations
@@ -61,6 +63,42 @@ def _concat_spheres(parts):
         base += v.shape[0]
     return (np.concatenate(all_v, axis=0), np.concatenate(all_t, axis=0),
             vtx_idx, elem_idx)
+
+
+def _vertex_sphere_ids(all_vtx_idx, n_vertices: int) -> np.ndarray:
+    """Vertex -> sphere id (-1 for none) from the per-sphere vertex lists;
+    where lists overlap (after a remesh) the first sphere wins
+    (``_vertex_sphere_ids``, multisphere.py:66)."""
+    sid = np.full(n_vertices, -1, np.int64)
+    for s, vid in enumerate(all_vtx_idx):
+        v = np.asarray(vid, np.int64)
+        fresh = sid[v] < 0
+        sid[v[fresh]] = s
+    return sid
+
+
+def repartition_spheres(old_vtx, old_sid, new_vtx, new_elem):
+    """The per-sphere bookkeeping on a remeshed topology
+    (``repartition_spheres``, multisphere.py:78): each new tet goes to the
+    sphere of the old (deformed) vertex nearest its centroid (an unassigned
+    one to sphere 0); a sphere's vertex list is the sorted union of its
+    tets' vertices and its elem list those tets in local indices of that
+    list. Tets, not vertices, partition: neighbouring spheres may share
+    boundary vertices. Returns (vtx_idx lists, elem_idx lists)."""
+    from scipy.spatial import cKDTree
+
+    new_elem = np.asarray(new_elem, np.int64)
+    cent = np.asarray(new_vtx, np.float64)[new_elem].mean(axis=1)
+    _, nn = cKDTree(np.asarray(old_vtx, np.float64)).query(cent)
+    sid = np.maximum(old_sid[nn], 0)
+    n_s = int(old_sid.max()) + 1 if old_sid.size else 0
+    vtx_idx, elem_idx = [], []
+    for s in range(n_s):
+        ts = new_elem[sid == s]
+        vs = np.unique(ts)
+        vtx_idx.append(vs.tolist())
+        elem_idx.append(np.searchsorted(vs, ts).tolist())
+    return vtx_idx, elem_idx
 
 
 def _read_json(path: str):
@@ -150,6 +188,20 @@ class TetMeshMultiSphereGeometry(TetMeshGeometry):
     @property
     def num_spheres(self) -> int:
         return len(self.all_spheres_vtx_idx)
+
+    def remesh(self, *args, **kwargs) -> None:
+        """``TetMeshGeometry.remesh``, then the partition re-derived on the
+        new tets from the deformed vertices' spheres (multisphere.py:
+        117-131). The 1/num_spheres scale is an init-time constant of the
+        objective (reference geometry/tetmesh_geometry.py:242-243) and is
+        kept, so the loss stays continuous where spheres merged."""
+        old_vtx = np.asarray(self.tetmesh.vtx, np.float64)
+        old_sid = _vertex_sphere_ids(self.all_spheres_vtx_idx,
+                                     self.tetmesh.num_vertices)
+        super().remesh(*args, **kwargs)
+        self.all_spheres_vtx_idx, self.all_spheres_elem_idx = \
+            repartition_spheres(old_vtx, old_sid, self.tetmesh.vtx,
+                                self.tetmesh.elem)
 
     def export(self, path: str, filename: str, **kwargs) -> None:
         """The tet mesh (``kwargs`` go to ``TetMesh.save``), plus per sphere

@@ -166,7 +166,8 @@ class TetMeshGeometry:
         """Build the statics and tet_v of ``self.tetmesh`` on the device,
         with the smoothness coefficient times ``smooth_scale``
         (1/num_spheres for the multi-sphere geometry, tet_geometry.py:
-        199-214)."""
+        199-214); ``reset`` keeps it."""
+        self.smooth_scale = smooth_scale
         tetmesh = self.tetmesh
         sb = parse_structured(SmoothBarrierParam,
                               self.cfg.smooth_barrier_param or {})
@@ -208,6 +209,33 @@ class TetMeshGeometry:
     def set_tet_v(self, tet_v) -> None:
         self.tet_v = torch.as_tensor(tet_v, dtype=torch.float32,
                                      device=self.device)
+
+    def reset(self, vtx_np, elem_np, surface_vid=None,
+              surface_fid=None) -> None:
+        """Swap in a new mesh and rebuild the statics and tet_v on the
+        device, the smoothness scale kept (``reset``, tet_geometry.py:233;
+        reference geometry/tetmesh_geometry.py:164-173)."""
+        self.tetmesh = TetMesh(vtx_np, elem_np, surface_vid, surface_fid)
+        self.setup(self.smooth_scale)
+
+    def remesh(self, edge_length: Optional[float] = None,
+               grid_dim: int = 64) -> None:
+        """Re-tetrahedralise the volume inside the surface of
+        ``self.tetmesh.vtx`` (the caller writes the current positions
+        there first) into fresh tets and ``reset`` to them (``remesh``,
+        tet_geometry.py:238; ``mesh/remesh.py``); the edge length defaults
+        to the median tet edge (each tet's first edge). The optimizer state
+        is the caller's to rebuild: the topology changed."""
+        from ..mesh.remesh import tet_remesh_from_surface
+
+        if edge_length is None:
+            v, e = self.tetmesh.vtx, self.tetmesh.elem
+            edge_length = float(np.median(
+                np.linalg.norm(v[e[:, 0]] - v[e[:, 1]], axis=1)))
+        sv, sf = self.tetmesh.surface_mesh()
+        self.reset(*tet_remesh_from_surface(sv, sf, edge_length,
+                                            grid_dim=grid_dim,
+                                            device=self.device))
 
     def export(self, path: str, filename: str, **kwargs) -> np.ndarray:
         """Save the tet mesh at the current tet_v (``kwargs`` go to

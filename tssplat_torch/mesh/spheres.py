@@ -74,9 +74,18 @@ def fibonacci_sphere(n: int, radius: float = 1.0) -> np.ndarray:
 
 
 def _tet_volumes(verts: np.ndarray, tets: np.ndarray) -> np.ndarray:
-    v = verts[tets]
-    d1, d2, d3 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], v[:, 3] - v[:, 0]
-    return np.einsum("ij,ij->i", np.cross(d1, d2), d3) / 6.0
+    return _volumes_of(verts[tets])
+
+
+def _volumes_of(v: np.ndarray) -> np.ndarray:
+    """Signed volumes (T,) of tets with corner positions v (T,4,3); the
+    cross product as np.cross takes it."""
+    d = v[:, 1:] - v[:, :1]                              # (T,3,3)
+    a, b = d[:, 0], d[:, 1]
+    c = np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                  a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                  a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=1)
+    return np.einsum("ij,ij->i", c, d[:, 2]) / 6.0
 
 
 def _bcc_lattice(lo: np.ndarray, hi: np.ndarray, a: float) -> np.ndarray:
@@ -179,16 +188,22 @@ def tet_ball_union(target_edge_length: float, centers, radii,
     return verts, tets
 
 
+_EDGE_I, _EDGE_J = np.triu_indices(4, k=1)
+
+
+def _quality_of(v: np.ndarray, vol: np.ndarray) -> np.ndarray:
+    """|vol| / maxEdge^3 of tets with corner positions v (T,4,3) and signed
+    volumes vol (T,); the edge lengths as np.linalg.norm takes them."""
+    e = v[:, _EDGE_I] - v[:, _EDGE_J]                    # (T,6,3)
+    L = np.sqrt(np.add.reduce(e * e, axis=2)).max(axis=1)
+    return np.abs(vol) / np.maximum(L ** 3, 1e-300)
+
+
 def _tet_quality(verts: np.ndarray, tets: np.ndarray) -> np.ndarray:
     """Scale-free tet quality |vol| / maxEdge^3 (regular tet ~= 0.118;
     slivers -> 0)."""
-    vol = np.abs(_tet_volumes(verts, tets))
     v = verts[tets]
-    L = 0.0
-    for i in range(3):
-        for j in range(i + 1, 4):
-            L = np.maximum(L, np.linalg.norm(v[:, i] - v[:, j], axis=1))
-    return vol / np.maximum(L ** 3, 1e-300)
+    return _quality_of(v, _volumes_of(v))
 
 
 def repair_sliver_tets(verts: np.ndarray, tets: np.ndarray, n_fixed: int,
@@ -204,7 +219,12 @@ def repair_sliver_tets(verts: np.ndarray, tets: np.ndarray, n_fixed: int,
     that would invert or worsen the LOCAL minimum quality are rejected
     per-iteration, so the pass is monotone in min-quality and terminates
     early once every tet clears the threshold. Operates on float64 host
-    arrays at init time (one-off, not in the training path)."""
+    arrays at init time (one-off, not in the training path).
+
+    The JAX package's function, vertex by vertex in the same order, with
+    each vertex's seven candidate positions evaluated in one batch: every
+    volume and quality is the same row computation, so the result is the
+    same to the bit."""
     verts = verts.copy()
     T = tets.shape[0]
     # vertex -> incident tets (CSR) once
@@ -236,29 +256,40 @@ def repair_sliver_tets(verts: np.ndarray, tets: np.ndarray, n_fixed: int,
             nbr = np.unique(inc_t.reshape(-1))
             nbr = nbr[nbr != vid]
             old = verts[vid].copy()
-            q_old = _tet_quality(verts, tets[inc]).min()
+            cur = verts[inc_t]                           # (n,4,3)
+            qi = _quality_of(cur, _volumes_of(cur))
+            q_old = qi.min()
 
             # candidate moves: Laplacian blends (opens clustered slivers)
             # + nudges along the worst incident tet's opposite-face normal
             # (the direction that actually grows a flat tet's height —
             # a sliver's Laplacian target is often IN its plane)
             lap = verts[nbr].mean(axis=0)
-            qi = _tet_quality(verts, inc_t)
             wt = inc_t[qi.argmin()]
             opp = wt[wt != vid][:3]
-            nrm = np.cross(verts[opp[1]] - verts[opp[0]],
-                           verts[opp[2]] - verts[opp[0]])
+            a = verts[opp[1]] - verts[opp[0]]
+            b = verts[opp[2]] - verts[opp[0]]
+            # np.cross's arithmetic, without its axis handling
+            nrm = np.array([a[1] * b[2] - a[2] * b[1],
+                            a[2] * b[0] - a[0] * b[2],
+                            a[0] * b[1] - a[1] * b[0]])
             nn = np.linalg.norm(nrm)
             nrm = nrm / nn if nn > 1e-30 else np.zeros(3)
             cands = [old + b * (lap - old) for b in (1.0, 0.5, 0.25)]
             cands += [old + s * h * nrm for s in (0.3, -0.3, 0.6, -0.6)]
 
+            # every candidate's incident tets at once: (7n,4,3)
+            at = (inc_t == vid)[None, :, :, None]
+            v7 = np.where(at, np.asarray(cands)[:, None, None, :],
+                          cur[None]).reshape(-1, 4, 3)
+            vol7 = _volumes_of(v7)
+            q7 = _quality_of(v7, vol7).reshape(len(cands), -1)
+            vol7 = vol7.reshape(len(cands), -1)
             best_q, best_p = q_old, None
-            for p in cands:
-                verts[vid] = p
-                if (_tet_volumes(verts, tets[inc]) <= 0).any():
+            for k, p in enumerate(cands):
+                if (vol7[k] <= 0).any():
                     continue
-                qn = _tet_quality(verts, tets[inc]).min()
+                qn = q7[k].min()
                 if qn > best_q:
                     best_q, best_p = qn, p
             verts[vid] = best_p if best_p is not None else old

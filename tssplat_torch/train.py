@@ -31,8 +31,9 @@ warns).
 ``train(cfg)`` is the driver of ``tssplat_tpu/train.py:409-861``: the
 geometry, the material and the data loader from the config's registries,
 the optimizer and its schedule, the permute-surface scheduler, the depth
-switch, logs, exports (the textured OBJ bake after the texture stage),
-checkpoints, resume and the SIGTERM/SIGINT finish. Knobs of parts not yet
+switch, periodic remeshing (``remesh_every``), logs, exports (the textured
+OBJ bake after the texture stage), checkpoints, resume and the SIGTERM/SIGINT
+finish. Knobs of parts not yet
 ported raise ``NotImplementedError`` (``_refuse_unported``).
 """
 
@@ -448,8 +449,6 @@ def _refuse_unported(cfg) -> None:
     if stage not in ("geometry", "texture"):
         raise ValueError(f"unknown fitting_stage {stage!r} (geometry or "
                          f"texture)")
-    if int(cfg.get("remesh_every", 0) or 0):
-        _not_ported("remesh_every", 4)
     if int(cfg.get("spatial", 0) or 0) > 1:
         _not_ported("spatial > 1", 6)
     if int(cfg.get("data", {}).get("world_size", 1)) > 1:
@@ -638,6 +637,7 @@ def train(cfg, device: DeviceLike = None):
         except ValueError:          # not the main thread
             pass
 
+    remesh_every = int(cfg.get("remesh_every", 0) or 0)
     perm_gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     t0 = time.time()
     n_steps = 0
@@ -648,6 +648,23 @@ def train(cfg, device: DeviceLike = None):
                 print(f"preempted: checkpoint written at iter {it - 1} "
                       f"(resume with resume=true)", flush=True)
                 break
+
+            # periodic remeshing (train.py:738-756): the deformed volume
+            # re-tetrahedralised; the optimizer, the best snapshot, the
+            # steps and the tile capacity start again on the new topology
+            if (remesh_every and it > start_iter and not texture
+                    and it % remesh_every == 0):
+                geometry.set_tet_v(state.params)
+                geometry.tetmesh.update_vtx_pos(
+                    state.params.detach().cpu().numpy())
+                geometry.remesh(grid_dim=int(cfg.get("remesh_grid_dim", 64)))
+                state = init_train_state(geometry.tet_v, init_fn)
+                steps.clear()
+                tile_k = _validated_tile_k(geometry, dataloader, resolution,
+                                           is_ortho)
+                print(f"remeshed at iter {it}: "
+                      f"{geometry.tetmesh.num_vertices} verts / "
+                      f"{geometry.tetmesh.num_tets} tets", flush=True)
 
             if permute_scheduler is not None and not texture:
                 dev_val = permute_scheduler(it)

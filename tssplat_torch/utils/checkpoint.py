@@ -13,7 +13,9 @@ The format is the port's own (the JAX package writes orbax checkpoints):
 stage's material parameters and their moments) as a dict. ``torch.load`` reads it with
 ``weights_only=True``, which refuses arbitrary classes; ``restore_checkpoint``
 rebuilds the NamedTuples from the template's types and places every tensor
-on the template's device.
+on the template's device. A tensor whose shape differs from the template's
+raises ValueError, as orbax's restore does (a checkpoint written after a
+remesh holds another topology than a freshly built geometry).
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ def _rebuild(plain: Any, template: Any) -> Any:
         if not isinstance(plain, torch.Tensor):
             raise ValueError(f"checkpoint holds {type(plain).__name__} "
                              f"where the template has a tensor")
+        if plain.shape != template.shape:
+            raise ValueError(f"checkpoint holds shape {tuple(plain.shape)} "
+                             f"where the template has "
+                             f"{tuple(template.shape)}")
         return plain.to(template.device)
     if isinstance(template, tuple) and hasattr(template, "_fields"):
         name = type(template).__name__
