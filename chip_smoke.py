@@ -134,12 +134,49 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                silhouette IoU > 0.5); (e) ray_mesh_hit_full,
                signed_distance, one smoothed_sdf_grad step and
                tet_remesh_from_surface on the card against the CPU
+ 13. ranks  — multi-rank training on the one card. (a) (run after 6b, on
+               its scenes) every slab of n_sp = 2 and 3 (256- and
+               176-row slabs with 8-row halos; 3 pads past the image) of the
+               bench scene (K1), the 18-sphere scene (K2b, K2a) and the
+               bench scene through a lens 7x longer (K1, K2b, K2a; its
+               silhouette crosses the image's top and bottom rows) at 8 x
+               512²: each kernel equal to its plain version with the same
+               viewport (K1 as phase 3, K2b/K2a to the bit) and its owned
+               rows bit-equal to the whole image's kernel output; K4 and K5
+               on each slab's visibility (zeroed outside the image) equal to
+               their plain versions, the owned rows' coverage equal to the
+               whole image's (on the zoomed scene the image's first and last
+               rows hold foreground, so a vertical pair into a row outside
+               the image would show); each kernel timed on the first slab
+               of n_sp 2, with its bound. (b)-(e) (run after 11, in phase 10's
+               directory, ``ranks_phase``): gloo ranks sharing the card,
+               started by tools/run_ranks.py under a deadline each, run
+               gso.yaml through main() for 4 iterations on phase 10's
+               dataset and sphere meshes: (b) view parallelism over 2 ranks
+               (10 chunks of 12, each rank 6 of every chunk: K2b, K3, K5 10
+               and K4 20 times an iteration per rank), best loss within rtol
+               1e-4 and tet_v within 2e-6 of one process unchunked; (c)
+               spatial=2 over 2 ranks and spatial=3 over 3: every
+               iteration's loss within rtol 1e-5 and tet_v within 1e-6;
+               (d) data.world_size=2 with batch 60 (each rank its slice) at
+               (b)'s tolerances against one process summing the batch in
+               the same two halves (view_chunk=60; that process's distance
+               from the unchunked one printed beside it, with the tet_v row
+               that moves most, the step it leaves, and that step's pixels
+               and gradient under each change apart); (e) the texture
+               stage's exact path view-sharded over 2
+               ranks on phase 10's final/ (60 views cached a rank): every
+               iteration's loss within rtol 1e-5 of one process. Every
+               rank's tet_v (material) the same bits; one line per run:
+               seconds, peak memory and launches an iteration of each rank
 The launch counts are zeroed just before each main-path phase (4, 7, 8,
-10a-c, 11a-b, 12c) and read just after it. Then one JSON line of per-kernel
+10a-c, 11a-b, 12c, 13b-e) and read just after it. Then one JSON line of per-kernel
 results (launches of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a
 from 8; ``launches_texture`` from phase 11 (a); ``launches_remesh``, an
-iteration of 12 (c) before and after the remesh), the nvidia-smi line, and
-as the last line {"ok": true, "device": {...}}.
+iteration of 12 (c) before and after the remesh; ``viewport_max_err``,
+``viewport_ms`` and ``viewport_bound_ms`` of 13 (a) for K1, K2a, K2b, K4
+and K5), the nvidia-smi line, and as the last line {"ok": true, "device":
+{...}}.
 """
 
 import contextlib
@@ -543,6 +580,19 @@ def main():
           f"{int((got[0] == 1).sum())} px of the large face, "
           f"{int((got[0] > 1).sum())} of the small; K2b and K2a equal the "
           f"walk", flush=True)
+
+    # ---- 13 (a). the slab form of K1, K2b, K2a, K4 and K5 -----------------
+    def report_slab(name, err, ms, bnd):
+        r = next(r for r in results if r["name"] == name)
+        r["viewport_max_err"] = err
+        if ms is not None:
+            r["viewport_ms"], r["viewport_bound_ms"] = ms, bnd[0]
+            print(f"[slab] {name}: {ms:.4f} ms on the first 272-row slab of "
+                  f"n_sp 2 ({N_VIEWS} views x 272 x {RES}), bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}); on {smi}", flush=True)
+
+    slab_phase(report_slab, bench_pos, bench_nbrs, pos, st.edge_nbrs, k, res,
+               gen)
     del k1_bins, k1_out, k1_ids, cb, got, want, boxed, pos, bench_pos
 
     # ---- 6b. antialias at the multi-sphere scene's first step ------------
@@ -638,6 +688,416 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def slab_phase(report_slab, bench_pos, bench_nbrs, ms_pos, ms_nbrs, k, res,
+               gen):
+    """Phase 13 (a): every slab of n_sp = 2 and 3 (the latter 176-row
+    slabs padded past the image) of the bench scene (K1), of the 18-sphere
+    scene (K2b, K2a) and of the bench scene through a lens seven times
+    longer (K1, K2b, K2a: its silhouette crosses the image's top and bottom
+    rows, so the slabs at the image's edges hold foreground on the image
+    row next to the rows outside it), 8 views: each kernel against its
+    plain version with the same viewport (K1 as phase 3; K2b and K2a to the
+    bit), and its owned rows bit-equal to the whole image's kernel output;
+    K4 and K5 on each slab's visibility of K1 and K2b (zeroed outside the
+    image, as the spatial loss does) equal to their plain versions, the
+    owned rows' coverage equal to the whole image's. Each slab's own
+    foreground is counted, and the zoomed scene's on the image's first and
+    last rows. Each kernel timed on the first slab of n_sp = 2 of the
+    first two scenes, with its bound; ``report_slab(name, err, ms, bound)``
+    takes each kernel's largest error over the slabs and that time."""
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.ops.binning import (bin_faces, bin_faces_capped,
+                                           capacity)
+    from tssplat_torch.parallel.spatial import HALO, slab_rows
+    from tssplat_torch.tools.compare_kernels import aa_bounds
+    from tssplat_torch.tools.timing import bound_ms, cuda_ms
+
+    H, W = res
+    B = bench_pos.shape[0]
+    zoomed = bench_pos.clone()
+    zoomed[..., :2] *= 7.0
+    k_zoom = capacity(None, int(bench_nbrs.shape[0]), res)
+    K1, K2B, K2A = "visibility", "visibility_capped", "visibility_capped_ids"
+    kernels = {K1: (rk.visibility, rk.visibility_plain),
+               K2B: (rk.visibility_capped, rk.visibility_capped_plain),
+               K2A: (rk.visibility_capped_ids,
+                     rk.visibility_capped_ids_plain)}
+
+    def binned(name, pos, nbrs, kk, rs, vp=None):
+        if name == K1:
+            return bin_faces(pos, nbrs, rs, vp)
+        return bin_faces_capped(pos, nbrs if name == K2B else None, rs, kk,
+                                vp)
+
+    # scene: (pos, edge neighbours, tile capacity, its kernels)
+    scenes = {"bench": (bench_pos, bench_nbrs, None, (K1,)),
+              "18 spheres": (ms_pos, ms_nbrs, k, (K2B, K2A)),
+              "bench zoomed": (zoomed, bench_nbrs, k_zoom, (K1, K2B, K2A))}
+    full, coverage = {}, {}
+    for sn, (pos, nbrs, kk, names) in scenes.items():
+        for name in names:
+            full[sn, name] = kernels[name][0](binned(name, pos, nbrs, kk,
+                                                     res), res)
+            if name != K2A:
+                coverage[sn, name] = rk.aa_forward(*full[sn, name])
+    edge_fg = {r: int((full["bench zoomed", K1][0][:, r] > 0).sum())
+               for r in (0, H - 1)}
+    require(all(v >= 20 * B for v in edge_fg.values()),
+            f"the zoomed scene's first and last rows hold {edge_fg} "
+            f"foreground px")
+    errs = dict.fromkeys((K1, K2B, K2A, "aa_forward", "aa_backward"), 0.0)
+    t0 = time.perf_counter()
+    n_slabs, slab_fg = 0, []
+    for n_sp in (2, 3):
+        h_loc = slab_rows(H, n_sp)
+        slab_h = h_loc + 2 * HALO
+        rs = (slab_h, W)
+        for s in range(n_sp):
+            row0 = s * h_loc - HALO
+            vp = (row0, H)
+            absr = row0 + torch.arange(slab_h, device=bench_pos.device)
+            valid = ((absr >= 0) & (absr < H))[:, None]
+            lo, hi = max(0, -row0), min(slab_h, H - row0)   # image rows
+            o0, o1 = HALO, HALO + min(h_loc, H - s * h_loc)   # owned rows
+            label = f"n_sp {n_sp} slab {s} (rows {row0}..{row0 + slab_h})"
+            fg = {}
+            for sn, (pos, nbrs, kk, names) in scenes.items():
+                outs = {}
+                for name in names:
+                    bins = binned(name, pos, nbrs, kk, rs, vp)
+                    fn, plain = kernels[name]
+                    require(int(bins.n_drop.sum()) == 0,
+                            f"{label}, {sn}: {name} drops "
+                            f"{bins.n_drop.tolist()}")
+                    got, want = fn(bins, rs), plain(bins, rs)
+                    torch.cuda.synchronize()
+                    require(torch.equal(got[0], want[0]),
+                            f"{label}, {sn}: {name} ids differ from plain")
+                    if name == K1:             # as phase 3
+                        require(torch.equal(got[3], want[3]),
+                                f"{label}, {sn}: K1 gaux differ from plain")
+                        err = max_err(got, want)
+                        require(err <= 1e-6, f"{label}, {sn}: K1 err {err}")
+                    else:                      # as phase 6
+                        require(all(torch.equal(a.view(torch.int32),
+                                                b.view(torch.int32))
+                                    for a, b in zip(got[:2], want[:2]))
+                                and all(torch.equal(a, b)
+                                        for a, b in zip(got[2:], want[2:])),
+                                f"{label}, {sn}: {name} differs from the "
+                                f"walk")
+                        err = max_err(got, want)
+                    for a, b in zip(got, full[sn, name]):
+                        rows = (slice(None), slice(o0, o1)) \
+                            if a.dim() == 3 else \
+                            (slice(None), slice(None), slice(o0, o1))
+                        brows = (slice(None), slice(row0 + o0, row0 + o1)) \
+                            if a.dim() == 3 else \
+                            (slice(None), slice(None),
+                             slice(row0 + o0, row0 + o1))
+                        require(torch.equal(a[rows], b[brows]),
+                                f"{label}, {sn}: {name}'s owned rows differ "
+                                f"from the whole image's")
+                    errs[name] = max(errs[name], err)
+                    outs[name] = (bins, got)
+                fg[sn] = int((outs[names[0]][1][0][:, lo:hi] > 0).sum())
+                for name in (K1, K2B):
+                    if name not in outs:
+                        continue
+                    inp = tuple(x * valid for x in outs[name][1])
+                    ct = torch.randn(inp[0].shape, generator=gen,
+                                     device=bench_pos.device)
+                    f_got = rk.aa_forward(*inp, viewport=vp)
+                    b_got = rk.aa_backward(*inp, ct, viewport=vp)
+                    f_want = rk.aa_forward_plain(*inp, viewport=vp)
+                    b_want = rk.aa_backward_plain(*inp, ct, viewport=vp)
+                    require(torch.equal(f_got, f_want)
+                            and torch.equal(b_got, b_want),
+                            f"{label}, {sn}: K4/K5 on {name}'s slab differ "
+                            f"from plain")
+                    require(torch.equal(f_got[:, o0:o1], coverage[sn, name][
+                        :, row0 + o0:row0 + o1]),
+                        f"{label}, {sn}: K4's owned rows differ from the "
+                        f"whole image")
+                    errs["aa_forward"] = max(errs["aa_forward"],
+                                             max_err([f_got], [f_want]))
+                    errs["aa_backward"] = max(errs["aa_backward"],
+                                              max_err([b_got], [b_want]))
+                if n_sp == 2 and s == 0 and sn != "bench zoomed":
+                    P = B * slab_h * W
+                    for name, (bins, got) in outs.items():
+                        fn = kernels[name][0]
+                        if name == K1:
+                            nbytes = (bins.table.numel() * 4
+                                      + bins.faces.numel() * 4
+                                      + 2 * bins.tile_count.numel() * 4
+                                      + 48 * P)
+                        else:
+                            nbytes = (bins.table.numel() * 4
+                                      + int(bins.counts.sum()) * 4
+                                      + bins.counts.numel() * 4
+                                      + (48 if name == K2B else 8) * P)
+                        report_slab(name, errs[name],
+                                    cuda_ms(lambda: fn(bins, rs)),
+                                    bound_ms(nbytes, 0))
+                    if K2B in outs:
+                        inp = tuple(x * valid for x in outs[K2B][1])
+                        ct = torch.randn(inp[0].shape, generator=gen,
+                                         device=bench_pos.device)
+                        b_aa = aa_bounds(inp, vp)
+                        report_slab("aa_forward", errs["aa_forward"],
+                                    cuda_ms(lambda: rk.aa_forward(
+                                        *inp, viewport=vp)),
+                                    b_aa["K4_bound"])
+                        report_slab("aa_backward", errs["aa_backward"],
+                                    cuda_ms(lambda: rk.aa_backward(
+                                        *inp, ct, viewport=vp)),
+                                    b_aa["K5_bound"])
+            require(fg["bench zoomed"] > 100 * B,
+                    f"{label}: the zoomed scene's slab holds "
+                    f"{fg['bench zoomed']} foreground px")
+            slab_fg.append(fg)
+            n_slabs += 1
+    for name in errs:
+        report_slab(name, errs[name], None, None)
+    print(f"[slab] {n_slabs} slabs of n_sp 2 and 3 ({slab_rows(H, 2)} and "
+          f"{slab_rows(H, 3)} owned rows, {HALO}-row halos) of 3 scenes: "
+          f"K1, K2b, K2a, K4 and K5 equal their plain versions, owned rows "
+          f"equal the whole image's; foreground px on the slabs' image rows "
+          f"{json.dumps(slab_fg)}; the zoomed scene's on the image's first "
+          f"and last rows {edge_fg}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _rel(steps, ref_steps):
+    """Each step's loss off that of ``ref_steps``, relative, as text."""
+    return [f"{abs(a[0] / b[0] - 1):.2g}" for a, b in zip(steps, ref_steps)]
+
+
+def _rank_line(label, res, iters, smi):
+    """One line of a multi-rank run: seconds, peak memory and launches an
+    iteration of each rank."""
+    per = [{k: v / iters for k, v in r["launches"].items() if v}
+           for r in res]
+    print(f"[ranks] {label}: {len(res)} ranks sharing one card (their rates "
+          f"are no scaling figure); seconds "
+          f"{[round(r['seconds'], 1) for r in res]}; peak "
+          f"{[round(r['peak_gib'], 2) for r in res]} GiB; launches an "
+          f"iteration {json.dumps(per)}; on {smi}", flush=True)
+
+
+def ranks_phase(smi, tmp, gso, base, geo_dir, views, timeout=300.0,
+                device=None):
+    """Phase 13 (b)-(e) on phase 10's dataset and sphere meshes (init path
+    B) and its final/ (the texture stage's geometry): gloo ranks sharing
+    the one card, each started by tools/run_ranks.py under ``timeout``
+    seconds; any rank's failure fails the phase. (b) view parallelism, 2
+    ranks; (c) spatial=2 over 2 ranks and spatial=3 over 3; (d) per-rank
+    slices (data.world_size=2, batch views / 2); (e) the exact texture path
+    view-sharded over 2 ranks. Each against one process of the same
+    iterations on the card ((d): summing the batch in the ranks' halves). ``device="cpu"`` rehearses it on the CPU
+    (where no kernel launches, so the launch checks are skipped)."""
+    from tssplat_torch.tools.run_ranks import run_ranks, train_rank
+    from tssplat_torch.utils.tree import tree_leaves
+
+    iters = 4
+    common = ["--config", gso, *base, f"data.total_num_iter={iters}",
+              "geometry.load_precomputed_tetwild_mesh=true",
+              "export_every=1000"]
+
+    def ranks(label, world, *over):
+        out = f"{tmp}/ranks_{label}"
+        res = run_ranks("tssplat_torch.tools.run_ranks:train_rank", dict(
+            out=out, argv=[*common, f"output_path={out}", *over],
+            device=device), world_size=world, timeout=timeout,
+            device=device)
+        params = [torch.load(r["params"]) for r in res]
+        require(all(torch.equal(a, b) for p in params[1:]
+                    for a, b in zip(tree_leaves(p), tree_leaves(params[0]))),
+                f"({label}): the ranks' parameters differ")
+        require(len({json.dumps(r["steps"]) for r in res}) == 1,
+                f"({label}): the ranks logged other losses")
+        _rank_line(label, res, iters, smi)
+        return res, params[0]
+
+    def one(label, *over, record=None):
+        """One process; with ``record`` (a dict) each step's statics,
+        options, batch, iteration and parameters before and after."""
+        import tssplat_torch.train as tt
+        make_step = tt.make_train_step
+
+        def spy(statics, update_fn, **kw):
+            step = make_step(statics, update_fn, **kw)
+            record.update(statics=statics, kw=kw)
+
+            def recorded(state, batch, it):
+                before = state.params.clone()
+                state, outs = step(state, batch, it)
+                for key, v in (("before", before), ("batch", batch),
+                               ("it", it), ("after", state.params.clone())):
+                    record.setdefault(key, []).append(v)
+                return state, outs
+            return recorded
+
+        out = f"{tmp}/one_{label}"
+        if record is not None:
+            tt.make_train_step = spy
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = train_rank(out, argv=[*common, f"output_path={out}",
+                                          *over], device=device)
+        finally:
+            tt.make_train_step = make_step
+        return r, torch.load(r["params"])
+
+    t0 = time.perf_counter()
+    rec_u, rec_h = {}, {}
+    unchunked = one("unchunked", "view_chunk=0", record=rec_u)
+
+    def close(label, res, p, rtol, atol, per_step=False, ref=unchunked,
+              what="unchunked"):
+        ref, ref_p = ref
+        err = float((p - ref_p).abs().max())
+        print(f"[ranks] ({label}) against one process, {what}: best loss "
+              f"{res[0]['best_loss']:.7g} ({ref['best_loss']:.7g}), tet_v "
+              f"max diff {err:.3g}; each iteration's loss off by "
+              f"{_rel(res[0]['steps'], ref['steps'])} (relative); n_drop "
+              f"{[s[3] for s in res[0]['steps']]} (one process "
+              f"{[s[3] for s in ref['steps']]})", flush=True)
+        if per_step:
+            for a, b in zip(res[0]["steps"], ref["steps"]):
+                require(math.isclose(a[0], b[0], rel_tol=rtol),
+                        f"({label}): loss {a[0]} vs one process {b[0]}")
+        require(math.isclose(res[0]["best_loss"], ref["best_loss"],
+                             rel_tol=rtol),
+                f"({label}): best loss {res[0]['best_loss']} vs "
+                f"{ref['best_loss']}")
+        require(err <= atol, f"({label}): tet_v differs by {err}")
+
+    # (b) view parallelism: view_chunk auto = 10 chunks of 12, 6 a rank
+    res, p = ranks("b_view_dp", 2)
+    close("b_view_dp", res, p, 1e-4, 2e-6)
+    want = dict(visibility_capped=10, wsr_table_grad=10, aa_forward=20,
+                aa_backward=10)
+    for r in res:
+        got = {k: v / iters for k, v in r["launches"].items() if v}
+        require(device is not None or got == want,
+                f"(b): launches an iteration {got}, expected {want}")
+    # (c) spatial
+    for n_sp in (2, 3):
+        res, p = ranks(f"c_spatial{n_sp}", n_sp, f"spatial={n_sp}")
+        close(f"c_spatial{n_sp}", res, p, 1e-5, 1e-6, per_step=True)
+    # (d) per-rank slices of the loader, against one process on the global
+    # batch summed in the same halves (two chunks); the halves' one process
+    # against the unchunked one shows how far the grouping alone moves tet_v
+    halves = one("halves", f"view_chunk={views // 2}", record=rec_h)
+    err = float((halves[1] - unchunked[1]).abs().max())
+    print(f"[ranks] one process, the batch in halves against unchunked: "
+          f"tet_v max diff {err:.3g}; each iteration's loss off by "
+          f"{_rel(halves[0]['steps'], unchunked[0]['steps'])}", flush=True)
+    _drift_probe(rec_u, rec_h, views // 2)
+    del rec_u, rec_h
+    res, p = ranks("d_world_size", 2, "data.world_size=2",
+                   f"data.batch_size={views // 2}", "data.rank=null")
+    close("d_world_size", res, p, 1e-4, 2e-6, ref=halves,
+          what="the batch in halves")
+    # (e) the exact texture path, view-sharded
+    tex = ["fitting_stage=texture", "material_type=ExplicitMaterial",
+           f"geometry.initial_mesh_path={geo_dir}"]
+    ref, _ = one("texture", *tex)
+    res, _ = ranks("e_texture", 2, *tex)
+    for a, b in zip(res[0]["steps"], ref["steps"]):
+        require(math.isclose(a[0], b[0], rel_tol=1e-5),
+                f"(e): loss {a[0]} vs one process {b[0]}")
+    n_vis = [sum(r["launches"][k] for k in ("visibility",
+                                            "visibility_capped_ids"))
+             for r in res]
+    require(device is not None or n_vis == [views // 2 + 1, views // 2],
+            f"(e): visibility launches {n_vis}, expected each rank's "
+            f"{views // 2} views cached (and rank 0's UV bake)")
+    print(f"[ranks] (e) texture, exact path over 2 ranks: losses "
+          f"{[round(s[0], 6) for s in res[0]['steps']]} (one process "
+          f"{[round(s[0], 6) for s in ref['steps']]}); phase 13 (b)-(e) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _drift_probe(rec_u, rec_h, view_chunk):
+    """Where and why the run summing the batch in two chunks of
+    ``view_chunk`` leaves the unchunked one (phase 13 (d)'s reference):
+    the tet_v row that moves most, the first step at which it is more than
+    1e-6 off, and at that step's parameters of both runs: the pixels whose
+    winning face differs, those on a face of that vertex, the pixels whose
+    coverage differs by more than 1e-3, and the vertex's gradient under
+    each change apart (the other run's parameters, the other grouping of
+    the sum on the same parameters, every coordinate nudged by one ulp in
+    a seeded direction) beside the largest change at every other vertex.
+    Prints one line; checks nothing."""
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.render.pipeline import render_visibility
+    from tssplat_torch.train import loss_and_grad
+
+    st, kw = rec_u["statics"], rec_u["kw"]
+    res, tile_k = kw["resolution"], kw["tile_k"]
+    drift = [(a - b).abs().amax(dim=1) for a, b in zip(rec_h["after"],
+                                                        rec_u["after"])]
+    v = int(drift[-1].argmax())
+    first = next((i for i, d in enumerate(drift) if float(d[v]) > 1e-6),
+                 None)
+    when = ("never more than 1e-6 off; at the last step" if first is None
+            else f"first off by more than 1e-6 after step {first + 1} of "
+            f"{len(drift)}; before that step")
+    first = len(drift) - 1 if first is None else first
+    p_u, p_h = rec_u["before"][first], rec_h["before"][first]
+    batch, it = rec_u["batch"][first], rec_u["it"][first]
+    faces = st.corner_vid.view(-1, 3)
+    n_ids = n_on_v = n_cov = 0
+    with torch.no_grad():
+        for s in range(0, batch["mvp"].shape[0], 12):
+            mvp = batch["mvp"][s:s + 12]
+            vu = render_visibility(p_u, st, mvp, res, shaded=False,
+                                   tile_k=tile_k)
+            vh = render_visibility(p_h, st, mvp, res, shaded=False,
+                                   tile_k=tile_k)
+            iu, ih = vu[0], vh[0]
+            diff = iu != ih
+            n_ids += int(diff.sum())
+            for ids in (iu[diff], ih[diff]):
+                f = (ids[ids > 0] - 1).long()
+                n_on_v += int((faces[f] == v).any(dim=1).sum())
+            cu = rk.aa_forward(*vu[:4])
+            ch = rk.aa_forward(*vh[:4])
+            n_cov += int(((cu - ch).abs() > 1e-3).sum())
+    gen = torch.Generator(device=p_u.device).manual_seed(5)
+    away = torch.where(torch.rand(p_u.shape, generator=gen,
+                                  device=p_u.device) < 0.5, -1.0, 1.0)
+    nudged = torch.nextafter(p_u, p_u + away)
+
+    def grad(p, chunk=0):
+        return loss_and_grad(st, p, batch, it, res, tile_k=tile_k,
+                             view_chunk=chunk)[4]
+
+    g_u = grad(p_u)
+    changes = {"the halves' parameters": grad(p_h) - g_u,
+               "the sum in halves": grad(p_u, view_chunk) - g_u,
+               "a one-ulp nudge": grad(nudged) - g_u}
+    others = torch.ones(g_u.shape[0], dtype=torch.bool, device=g_u.device)
+    others[v] = False
+    text = "; ".join(
+        f"{name}: {float(d[v].abs().max()):.3g} at the vertex, "
+        f"{float(d[others].abs().max()):.3g} at any other"
+        for name, d in changes.items())
+    print(f"[ranks] (d) the drift: tet_v row {v} moves most "
+          f"({float(drift[-1][v]):.3g}; the next row "
+          f"{float(drift[-1][others].max()):.3g}; per step "
+          f"{[f'{float(d[v]):.3g}' for d in drift]}), {when} the "
+          f"two runs' parameters differ by "
+          f"{float((p_h - p_u).abs().max()):.3g} and give other winning "
+          f"faces at {n_ids} px ({n_on_v} on faces of the vertex) and "
+          f"coverage off by > 1e-3 at {n_cov} px; the vertex's gradient "
+          f"(max |g| {float(g_u[v].abs().max()):.3g}, over all "
+          f"{float(g_u.abs().max()):.3g}) changes under {text}", flush=True)
 
 
 class _Tee(io.TextIOBase):
@@ -788,8 +1248,11 @@ def driver_phase(smi, views=120, res=512, device=None):
         require(built == [False, True], f"(c): steps built {built}")
         require(len(log_c) == 12, f"(c): {len(log_c)} log lines")
 
-        return texture_phase(smi, tmp, run, f"{out_a}/final", views,
-                             device)
+        counts = texture_phase(smi, tmp, run, f"{out_a}/final", views,
+                               device)
+        ranks_phase(smi, tmp, gso, base, f"{out_a}/final", views,
+                    device=device)
+        return counts
 
 
 def _falls(logged):

@@ -494,3 +494,154 @@ def test_skeleton_step_and_remesh_on_the_card_match_cpu():
     assert np.abs(gg - gc).max() <= 1e-4 * np.abs(gc).max()
     assert abs(vg.shape[0] - vc.shape[0]) <= 0.02 * vc.shape[0]
     assert abs(tg.shape[0] - tc.shape[0]) <= 0.02 * tc.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# the slab form (row-slab spatial sharding): (row0, full_h) in every kernel
+# ---------------------------------------------------------------------------
+
+SLABS = [(-8, 56), (32, 56), (88, 56), (40, 32)]
+
+
+@pytest.fixture(scope="module")
+def slab_scene():
+    """tet_sphere(0.06) (722 faces), 2 views at 128x128 on the card, with
+    the full image's K1 and K2b outputs; slabs of 56 rows end in a partial
+    16-row tile of K1. ``border``: the same sphere through a lens six times
+    longer (clip x and y scaled), which crosses the image's top and bottom
+    rows, so the slabs at the image's edges hold foreground on the image row
+    next to the rows outside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    mesh = TetMesh(*tet_sphere(0.06, radius=0.3))
+    corners = torch.tensor(mesh.vtx[mesh.surface_vid[mesh.surface_fid]
+                                    .reshape(-1)], dtype=torch.float32,
+                           device=dev)
+    mvp, _, _ = fibonacci_views(2)
+    pos = transform_pos(torch.tensor(mvp, dtype=torch.float32, device=dev),
+                        corners)
+    nbrs = torch.tensor(mesh.surface_edge_neighbors(), device=dev)
+    res = (128, 128)
+    k = capacity(None, int(nbrs.shape[0]), res)
+
+    def scene(pos):
+        return dict(pos=pos, nbrs=nbrs, res=res, k=k,
+                    full=rk.visibility(bin_faces(pos, nbrs, res), res),
+                    full_c=rk.visibility_capped(
+                        bin_faces_capped(pos, nbrs, res, k), res))
+
+    zoomed = pos.clone()
+    zoomed[..., :2] *= 6.0
+    return dict(scene(pos), border=scene(zoomed))
+
+
+def _rows(t, lo, hi):
+    """Rows lo:hi of (B,H,W) or channel-major (B,C,H,W)."""
+    return t[:, lo:hi] if t.dim() == 3 else t[:, :, lo:hi]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0, h", SLABS,
+                         ids=[f"row0_{r}_h{h}" for r, h in SLABS])
+def test_slab_visibility_kernels_match_plain_and_full_rows(slab_scene, row0,
+                                                           h):
+    """K1 (with and without rows), K2b and K2a on a slab: equal to their
+    plain versions with the same viewport (ids and z to the bit), and its
+    rows inside the image equal to the whole image's kernel output; on the
+    centred sphere and on the border scene, whose silhouette crosses the
+    image's top and bottom rows."""
+    fg = 0
+    for sc in (slab_scene, slab_scene["border"]):
+        pos, nbrs, (H, W), k = (sc[n] for n in ("pos", "nbrs", "res", "k"))
+        vp, res = (row0, H), (h, W)
+        lo, hi = max(0, -row0), min(h, H - row0)
+        bins = bin_faces(pos, nbrs, res, vp)
+        cb = bin_faces_capped(pos, nbrs, res, k, vp)
+        cb_ids = bin_faces_capped(pos, None, res, k, vp)
+        runs = ((rk.visibility(bins, res), rk.visibility_plain(bins, res),
+                 sc["full"]),
+                (rk.visibility(bin_faces(pos, None, res, vp), res,
+                               emit_g=False),
+                 rk.visibility_plain(bin_faces(pos, None, res, vp), res,
+                                     emit_g=False), sc["full"][:2]),
+                (rk.visibility_capped(cb, res),
+                 rk.visibility_capped_plain(cb, res), sc["full_c"]),
+                (rk.visibility_capped_ids(cb_ids, res),
+                 rk.visibility_capped_ids_plain(cb_ids, res),
+                 sc["full_c"][:2]))
+        torch.cuda.synchronize()
+        assert int(cb.n_drop.sum()) == 0
+        for got, plain, full in runs:
+            assert torch.equal(got[0], plain[0])
+            assert torch.equal(_bits(got[1]), _bits(plain[1]))
+            for a, b in zip(got[2:], plain[2:]):
+                assert torch.equal(a, b)
+            for a, b in zip(got, full):
+                assert torch.equal(_rows(a, lo, hi), _rows(b, row0 + lo,
+                                                           row0 + hi))
+        fg += int((runs[0][0][0][:, lo:hi] > 0).sum())
+    assert fg > 1000                    # the slab's own foreground
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0, h", SLABS,
+                         ids=[f"row0_{r}_h{h}" for r, h in SLABS])
+def test_slab_antialias_kernels_match_plain_and_full_rows(slab_scene, row0,
+                                                          h):
+    """K4 and K5 on a slab's visibility (zeroed on the rows outside the
+    image, as the spatial loss does): equal to their plain versions with
+    the same viewport; K4's rows whose vertical neighbours lie in the slab
+    equal the whole image's coverage. On the border scene the slab's first
+    or last image row (next to the zeroed rows) holds foreground and is
+    held to the whole image too: a vertical pair into a row outside the
+    image (JAX's ``row_valid`` cut) would change its coverage."""
+    for sc in (slab_scene, slab_scene["border"]):
+        pos, nbrs, (H, W) = sc["pos"], sc["nbrs"], sc["res"]
+        vp, res = (row0, H), (h, W)
+        lo, hi = max(0, -row0), min(h, H - row0)
+        valid = torch.zeros(h, dtype=torch.bool, device=pos.device)
+        valid[lo:hi] = True
+        ids, z, g6, gaux = rk.visibility(bin_faces(pos, nbrs, res, vp), res)
+        inp = (ids * valid[:, None], z * valid[:, None],
+               g6 * valid[:, None], gaux * valid[:, None])
+        ct = torch.randn(ids.shape, generator=torch.Generator(
+            device=pos.device).manual_seed(1), device=pos.device)
+        got_f, got_b = rk.aa_forward(*inp, viewport=vp), \
+            rk.aa_backward(*inp, ct, viewport=vp)
+        assert torch.equal(got_f, rk.aa_forward_plain(*inp, viewport=vp))
+        assert torch.equal(got_b, rk.aa_backward_plain(*inp, ct,
+                                                       viewport=vp))
+        full = rk.aa_forward(*sc["full"])
+        i0, i1 = max(lo, 1), min(hi, h - 1)
+        assert torch.equal(got_f[:, i0:i1], full[:, row0 + i0:row0 + i1])
+        assert float(got_f[:, :lo].abs().sum()
+                     + got_f[:, hi:].abs().sum()) == 0
+        if sc is slab_scene["border"]:       # foreground next to the cut
+            assert int((inp[0][:, lo:hi] > 0).sum()) > 1000
+            for r in {0, H - 1} & set(range(row0, row0 + h)):
+                assert bool(((inp[0][:, r - row0] > 0).sum(-1) >= 20).all())
+
+
+@pytest.mark.cuda
+def test_whole_image_viewport_is_the_default(slab_scene):
+    """Each kernel with the viewport (0, H) gives the bits of the call
+    without one."""
+    pos, nbrs, res, k = (slab_scene[n] for n in ("pos", "nbrs", "res", "k"))
+    vp = (0, res[0])
+    for a, b in zip(rk.visibility(bin_faces(pos, nbrs, res, vp), res),
+                    slab_scene["full"]):
+        assert torch.equal(a, b)
+    for a, b in zip(rk.visibility_capped(
+            bin_faces_capped(pos, nbrs, res, k, vp), res),
+            slab_scene["full_c"]):
+        assert torch.equal(a, b)
+    a, b = rk.visibility_capped_ids(bin_faces_capped(pos, None, res, k, vp),
+                                    res), \
+        rk.visibility_capped_ids(bin_faces_capped(pos, None, res, k), res)
+    assert torch.equal(a[0], b[0]) and torch.equal(_bits(a[1]), _bits(b[1]))
+    inp = slab_scene["full"]
+    ct = torch.ones_like(inp[1])
+    assert torch.equal(rk.aa_forward(*inp, viewport=vp), rk.aa_forward(*inp))
+    assert torch.equal(rk.aa_backward(*inp, ct, viewport=vp),
+                       rk.aa_backward(*inp, ct))

@@ -326,12 +326,10 @@ def test_sigterm_checkpoints_and_resumes(two_views, capsys):
 
 
 @pytest.mark.parametrize("knob, item", [
-    (dict(spatial=2), 6),
-    (dict(data=dict(world_size=2)), 6),
     (dict(debug_nans=True), 7),
     (dict(anomaly=True), 7),
     (dict(sds=dict(prompt="a dog")), 8),
-], ids=["spatial", "world_size", "debug_nans", "anomaly", "sds"])
+], ids=["debug_nans", "anomaly", "sds"])
 def test_unported_knobs_raise(root, knob, item):
     """Each knob of a part not yet ported raises NotImplementedError naming
     its ROADMAP item, before anything is built."""

@@ -29,8 +29,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     """Every module of the port, imported in a fresh interpreter, loads no
-    jax and no tssplat_tpu module; the driver's and the texture stage's
-    modules among them."""
+    jax and no tssplat_tpu module; the driver's, the texture stage's and
+    the multi-rank modules among them."""
     code = (
         "import sys, pkgutil, importlib, tssplat_torch\n"
         "for m in pkgutil.walk_packages(tssplat_torch.__path__, "
@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
         "'tssplat_torch.models.networks', 'tssplat_torch.materials', "
         "'tssplat_torch.materials.explicit_material', "
         "'tssplat_torch.materials.exact_stage', "
-        "'tssplat_torch.materials.export', 'tssplat_torch.mesh.uv']\n"
+        "'tssplat_torch.materials.export', 'tssplat_torch.mesh.uv', "
+        "'tssplat_torch.parallel', 'tssplat_torch.parallel.mesh', "
+        "'tssplat_torch.parallel.spatial', 'tssplat_torch.utils.env', "
+        "'tssplat_torch.tools.run_ranks']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tssplat_tpu')]\n"

@@ -247,8 +247,7 @@ def test_exact_loss_matches_jax_and_dense(scene):
 
 def test_exact_cache_refuses_as_jax_does(scene):
     """The same refusals and reason strings as JAX's: more foreground
-    pixels than max_px, and an encoding that is not a plain HashGrid; the
-    view-sharded variant raises as not ported."""
+    pixels than max_px, and an encoding that is not a plain HashGrid."""
     geo_j, geo_t, mat_j, mat_t, b = scene
     bj, bt = _jax_batch(b), _torch_batch(b)
     for kw in (dict(max_px=1), {}):
@@ -266,8 +265,6 @@ def test_exact_cache_refuses_as_jax_does(scene):
             for m in (mat_j, mat_t):
                 m.cfg.pos_encoding_config = dict(ENC)
         assert r_t == r_j and len(r_t) == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        build_texture_exact_loss(mat_t, geo_t.statics, {}, mesh=object())
 
 
 def _jax_step(geo_j, mat_j, S, cache):

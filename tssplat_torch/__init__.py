@@ -11,7 +11,10 @@ Layers (mirroring ``tssplat_tpu``):
               whole, and the texture stage (exact, sampled or dense)
   config    — YAML configs, CLI overrides, registries
   data      — multi-view datasets and the view-batch loader
-  utils     — checkpoints, the throughput meter
+  utils     — checkpoints, the throughput meter, rank discovery and the
+              process group (utils/env.py)
+  parallel  — multi-rank training: the view group, row-slab spatial
+              sharding
   mesh      — tet-mesh container, surface topology, sphere meshing (numpy)
   ops       — energy, clip transform, binning, visibility/antialias kernels
   geometry  — optimizable tet geometry state

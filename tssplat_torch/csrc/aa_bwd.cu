@@ -83,8 +83,9 @@ aa_bwd_kernel(aa::View v, bool vec, const float* __restrict__ ct,
                                      ((unsigned)P.k << 2));
         if (!P.valid) return;
         s.terms[p] = aa::grad_terms(
-            o, aa::ndc(ca, v.W), aa::ndc(ra, v.H), aa::ndc(cb, v.W),
-            aa::ndc(rb, v.H), P, aa::coverage(id_a), aa::coverage(id_b),
+            o, aa::ndc(ca, v.W), aa::ndc(v.row0 + ra, v.full_h),
+            aa::ndc(cb, v.W), aa::ndc(v.row0 + rb, v.full_h), P,
+            aa::coverage(id_a), aa::coverage(id_b),
             __ldg(ct + v.at(ra, ca)), __ldg(ct + v.at(rb, cb)));
       });
   if (!u.touched()) return;
@@ -105,10 +106,11 @@ aa_bwd_kernel(aa::View v, bool vec, const float* __restrict__ ct,
 extern "C" int tss_aa_bwd_launch(const void* ids, const void* z,
                                  const void* g6, const void* gaux,
                                  const void* ct, int B, int H, int W,
-                                 void* dg6, void* stream) {
+                                 int row0, int full_h, void* dg6,
+                                 void* stream) {
   aa::View v{static_cast<const int*>(ids), static_cast<const float*>(z),
              static_cast<const float*>(g6), static_cast<const float*>(gaux),
-             H, W, (long long)H * W, 0};
+             H, W, (long long)H * W, 0, row0, full_h};
   const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(ids) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(dg6) % 16 == 0;
   const dim3 grid((W + aa::kTileW - 1) / aa::kTileW,

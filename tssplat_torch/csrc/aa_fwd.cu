@@ -85,10 +85,11 @@ aa_fwd_kernel(aa::View v, bool vec, float* __restrict__ out) {
 
 extern "C" int tss_aa_fwd_launch(const void* ids, const void* z,
                                  const void* g6, const void* gaux, int B,
-                                 int H, int W, void* out, void* stream) {
+                                 int H, int W, int row0, int full_h,
+                                 void* out, void* stream) {
   aa::View v{static_cast<const int*>(ids), static_cast<const float*>(z),
              static_cast<const float*>(g6), static_cast<const float*>(gaux),
-             H, W, (long long)H * W, 0};
+             H, W, (long long)H * W, 0, row0, full_h};
   const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(ids) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const dim3 grid((W + aa::kTileW - 1) / aa::kTileW,

@@ -12,6 +12,14 @@
 //    evaluates each listed pair once with all its threads, each kernel
 //    keeping the pair's terms in shared memory by the pair's position; then
 //    each thread sums the terms of its pixels in the plain version's order.
+// 3. The slab form (row-slab spatial sharding): the H rows are absolute rows
+//    row0 + r of a full_h-tall image (rasterize.py:1012-1044 with a
+//    viewport). Pixel centres are those of the absolute rows, and a vertical
+//    pair exists only where both of its absolute rows lie in [0, full_h) --
+//    JAX's row_valid cut, derived from (row0, full_h) instead of a mask.
+//    Pairs along a row and each pixel's own coverage are not cut. A run
+//    whose vertical neighbours are cut lists no pair with them, so a quiet
+//    run next to a valid-row boundary inside a tile streams as before.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +35,7 @@ struct View {
   int H, W;
   long long HW;
   long long b;
+  int row0, full_h;    // the slab's first absolute row; the image's height
 
   __device__ long long at(int r, int c) const {
     return b * HW + (long long)r * W + c;
@@ -34,6 +43,10 @@ struct View {
   // channel j of a (B,C,H,W) array
   __device__ long long at(int C, int j, int r, int c) const {
     return (b * C + j) * HW + (long long)r * W + c;
+  }
+  // whether slab row r is a row of the image
+  __device__ bool row_in_image(int r) const {
+    return r + row0 >= 0 && r + row0 < full_h;
   }
 };
 
@@ -90,8 +103,8 @@ __device__ inline Pair eval(const View& v, int ra, int ca, int rb, int cb,
   for (int j = 0; j < 3; ++j) aux[j] = __ldg(v.gaux + v.at(4, j, ro, co));
   o.s = __ldg(v.gaux + v.at(4, 3, ro, co));
   const float* g = o.g;
-  const float pax = ndc(ca, v.W), pay = ndc(ra, v.H);
-  const float pbx = ndc(cb, v.W), pby = ndc(rb, v.H);
+  const float pax = ndc(ca, v.W), pay = ndc(v.row0 + ra, v.full_h);
+  const float pbx = ndc(cb, v.W), pby = ndc(v.row0 + rb, v.full_h);
   float te[3], tn[3];
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
@@ -293,8 +306,13 @@ __device__ inline Run find_pairs(const View& v, int r0, int c0, bool vec) {
   if (lane == kLanes - 1) edge_id = load_id(v, u.r, u.c + kRun);
   int above[kRun], below[kRun];
   load_run(v, u.r, u.c, vec, u.id);
-  load_run(v, u.r - 1, u.c, vec, above);
-  load_run(v, u.r + 1, u.c, vec, below);
+  // a vertical pair with a row outside the image does not exist: its
+  // neighbour reads as off the slab (row -1)
+  const bool in_image = v.row_in_image(u.r);
+  load_run(v, in_image && v.row_in_image(u.r - 1) ? u.r - 1 : -1, u.c, vec,
+           above);
+  load_run(v, in_image && v.row_in_image(u.r + 1) ? u.r + 1 : -1, u.c, vec,
+           below);
   int left = __shfl_up_sync(0xffffffffu, u.id[kRun - 1], 1);
   int right = __shfl_down_sync(0xffffffffu, u.id[0], 1);
   if (lane == 0) left = edge_id;

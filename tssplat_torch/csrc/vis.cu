@@ -15,6 +15,12 @@
 // by all threads as a broadcast), the running best (z, id) stays in
 // registers, and the winner's row is fetched once at the end instead of
 // carrying 10 channels through the loop. Coalesced channel-major stores.
+//
+// Slab form (row-slab spatial sharding, pallas_raster.py:66 with row0_ref
+// and the static full_h): the H rows are absolute rows row0 + r of a
+// full_h-tall image, so a pixel's centre is ndc_center(row0 + r, full_h);
+// row0 is negative for the top halo. A slab of 8-aligned rows may end in a
+// partial 16-row tile: its rows past H are evaluated and never stored.
 
 #include "vis_common.cuh"
 
@@ -29,7 +35,7 @@ __global__ void __launch_bounds__(kThreads) vis_kernel(
     const int* __restrict__ tile_start,    // (B * ntiles)
     const int* __restrict__ tile_count,    // (B * ntiles)
     const int* __restrict__ faces,         // sorted face ids
-    int F, int H, int W, int ntx, int ntiles,
+    int F, int H, int W, int ntx, int ntiles, int row0, int full_h,
     int* __restrict__ ids_out, float* __restrict__ z_out,
     float* __restrict__ g6, float* __restrict__ gaux) {
   __shared__ float4 s_row[kThreads][3];    // ax..z1 | z2,inv_area,.. (12 floats)
@@ -41,7 +47,7 @@ __global__ void __launch_bounds__(kThreads) vis_kernel(
   const int col = (t % ntx) * kTile + threadIdx.x;
   const int row = (t / ntx) * kTile + threadIdx.y;
   const float px = tss::ndc_center(col, W);
-  const float py = tss::ndc_center(row, H);
+  const float py = tss::ndc_center(row0 + row, full_h);
 
   const int slot = b * ntiles + t;
   const int start = tile_start[slot];
@@ -83,8 +89,9 @@ __global__ void __launch_bounds__(kThreads) vis_kernel(
 extern "C" int tss_vis_launch(const void* table, const void* tile_start,
                               const void* tile_count, const void* faces,
                               int B, int F, int H, int W, int nty, int ntx,
-                              int emit_g, void* ids_out, void* z_out,
-                              void* g6, void* gaux, void* stream) {
+                              int emit_g, int row0, int full_h,
+                              void* ids_out, void* z_out, void* g6,
+                              void* gaux, void* stream) {
   const dim3 grid(nty * ntx, B);
   const dim3 block(kTile, kTile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -92,14 +99,14 @@ extern "C" int tss_vis_launch(const void* table, const void* tile_start,
     vis_kernel<true><<<grid, block, 0, s>>>(
         static_cast<const float4*>(table), static_cast<const int*>(tile_start),
         static_cast<const int*>(tile_count), static_cast<const int*>(faces),
-        F, H, W, ntx, nty * ntx, static_cast<int*>(ids_out),
+        F, H, W, ntx, nty * ntx, row0, full_h, static_cast<int*>(ids_out),
         static_cast<float*>(z_out), static_cast<float*>(g6),
         static_cast<float*>(gaux));
   } else {
     vis_kernel<false><<<grid, block, 0, s>>>(
         static_cast<const float4*>(table), static_cast<const int*>(tile_start),
         static_cast<const int*>(tile_count), static_cast<const int*>(faces),
-        F, H, W, ntx, nty * ntx, static_cast<int*>(ids_out),
+        F, H, W, ntx, nty * ntx, row0, full_h, static_cast<int*>(ids_out),
         static_cast<float*>(z_out), nullptr, nullptr);
   }
   return static_cast<int>(cudaGetLastError());

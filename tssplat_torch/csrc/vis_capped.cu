@@ -69,6 +69,11 @@
 //    slots the earlier long CTAs leave free.
 // What is left above the bound is the search itself: the two densest tiles
 // that share an SM set the kernel's length (PERF.md).
+//
+// Slab form (pallas_raster.py:66 and :132, row0_ref and the static full_h):
+// the H rows are absolute rows row0 + r of a full_h-tall image; pixel
+// centres and the faces' row boxes are taken in absolute rows (the box
+// clipped to the tile's absolute rows), the stores go to the slab's rows.
 
 #include "vis_common.cuh"
 
@@ -175,8 +180,8 @@ __global__ void __launch_bounds__(kThreads) vis_capped_kernel(
     const float4* __restrict__ table,      // (B, F, 4) float4 = (B, F, 16)
     const int* __restrict__ counts,        // (B * ntiles), each <= k
     const int* __restrict__ cand,          // (B * ntiles, k) face ids
-    int B, int F, int H, int W, int ntx, int ntiles, int k,
-    int* __restrict__ ids_out, float* __restrict__ z_out,
+    int B, int F, int H, int W, int ntx, int ntiles, int k, int slab_row0,
+    int full_h, int* __restrict__ ids_out, float* __restrict__ z_out,
     float* __restrict__ g6, float* __restrict__ gaux) {
   __shared__ unsigned long long s_key[kTilePx];
   __shared__ float s_px[kTileW];
@@ -190,7 +195,8 @@ __global__ void __launch_bounds__(kThreads) vis_capped_kernel(
   const int t = blockIdx.x / B;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int row0 = (t / ntx) * kTileH;
+  const int row0 = (t / ntx) * kTileH;        // the tile's first slab row
+  const int abs_row0 = slab_row0 + row0;      // ... as an image row
   const int col0 = (t % ntx) * kTileW;
   const int slot = b * ntiles + t;
   const int count = counts[slot];          // uniform over the CTA
@@ -199,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) vis_capped_kernel(
   if (count > 0) {
     for (int i = tid; i < kTilePx; i += kThreads) s_key[i] = kBackground;
     if (tid < kTileW) s_px[tid] = tss::ndc_center(col0 + tid, W);
-    if (tid < kTileH) s_py[tid] = tss::ndc_center(row0 + tid, H);
+    if (tid < kTileH) s_py[tid] = tss::ndc_center(abs_row0 + tid, full_h);
 
     const int* tile_cand = cand + (size_t)slot * k;
     for (int base = 0; base < count; base += kStage) {
@@ -223,7 +229,8 @@ __global__ void __launch_bounds__(kThreads) vis_capped_kernel(
           int x0, x1, y0, y1;
           if (inv_area != 0.0f &&
               clip_axis(r0.x, r0.z, r1.x, W, col0, kTileW, x0, x1) &&
-              clip_axis(r0.y, r0.w, r1.y, H, row0, kTileH, y0, y1)) {
+              clip_axis(r0.y, r0.w, r1.y, full_h, abs_row0, kTileH, y0,
+                        y1)) {
             ent_f[j] = f;
             ent_box[j] = pack_box(x0, x1, y0, y1);
             atomicAdd(&s_class[size_class(Box(ent_box[j]).pixels())], 1);
@@ -358,35 +365,37 @@ __global__ void __launch_bounds__(kThreads) vis_capped_kernel(
 
 template <bool EMIT_G>
 int launch(const void* table, const void* counts, const void* cand, int B,
-           int F, int H, int W, int k, void* ids_out, void* z_out, void* g6,
-           void* gaux, void* stream) {
+           int F, int H, int W, int k, int row0, int full_h, void* ids_out,
+           void* z_out, void* g6, void* gaux, void* stream) {
   const int nty = H / kTileH, ntx = W / kTileW;
   vis_capped_kernel<EMIT_G><<<B * nty * ntx, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(table), static_cast<const int*>(counts),
-      static_cast<const int*>(cand), B, F, H, W, ntx, nty * ntx, k,
-      static_cast<int*>(ids_out), static_cast<float*>(z_out),
+      static_cast<const int*>(cand), B, F, H, W, ntx, nty * ntx, k, row0,
+      full_h, static_cast<int*>(ids_out), static_cast<float*>(z_out),
       static_cast<float*>(g6), static_cast<float*>(gaux));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K2a: ids + z. H % 8 == 0 and W % 128 == 0 (checked by the wrapper).
+// K2a: ids + z. H % 8 == 0 and W % 128 == 0 (checked by the wrapper); the
+// H rows are absolute rows row0.. of a full_h-tall image.
 extern "C" int tss_vis_capped_launch(const void* table, const void* counts,
                                      const void* cand, int B, int F, int H,
-                                     int W, int k, void* ids_out, void* z_out,
+                                     int W, int k, int row0, int full_h,
+                                     void* ids_out, void* z_out,
                                      void* stream) {
-  return launch<false>(table, counts, cand, B, F, H, W, k, ids_out, z_out,
-                       nullptr, nullptr, stream);
+  return launch<false>(table, counts, cand, B, F, H, W, k, row0, full_h,
+                       ids_out, z_out, nullptr, nullptr, stream);
 }
 
 // K2b: ids + z + the winner's rows g6, gaux.
 extern "C" int tss_vis_capped_g_launch(const void* table, const void* counts,
                                        const void* cand, int B, int F, int H,
-                                       int W, int k, void* ids_out,
-                                       void* z_out, void* g6, void* gaux,
-                                       void* stream) {
-  return launch<true>(table, counts, cand, B, F, H, W, k, ids_out, z_out, g6,
-                      gaux, stream);
+                                       int W, int k, int row0, int full_h,
+                                       void* ids_out, void* z_out, void* g6,
+                                       void* gaux, void* stream) {
+  return launch<true>(table, counts, cand, B, F, H, W, k, row0, full_h,
+                      ids_out, z_out, g6, gaux, stream);
 }

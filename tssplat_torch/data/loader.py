@@ -11,7 +11,8 @@ per-iteration batch index lists computed up front and split by
     index;
   - rank slice ``[rank*bs : min((rank+1)*bs, n)]`` of each iteration's
     shuffle, reused for every forward of the iteration (dataloader.py:
-    99-106);
+    99-106); without a ``rank`` in the config, the process's rank
+    (``utils/env.py get_rank``) where ``world_size`` > 1, else 0;
   - ``num_forward_per_iter = ceil(n / (bs * world_size))``.
 """
 
@@ -26,6 +27,7 @@ import torch
 
 from ..config import DATALOADERS, parse_structured
 from ..device import DeviceLike, resolve_device
+from ..utils.env import get_rank
 from .datasets import ArrayDataset, BlenderImgDataset, MitsubaImgDataset
 
 
@@ -38,7 +40,7 @@ class ViewDataLoader:
         batch_size: int = 1
         total_num_iter: int = 1
         world_size: int = 1
-        rank: int = 0
+        rank: Optional[int] = None
         dataset_config: Optional[dict] = None
 
     dataset_cls = None
@@ -109,9 +111,17 @@ class ViewDataLoader:
                 batch_iter.append(per_rank)
             self.batch_list.append(batch_iter)
 
+    @property
+    def rank(self) -> int:
+        """The slice this loader serves by default: the config's rank, else
+        the process's where world_size > 1, else 0."""
+        if self.cfg.rank is not None:
+            return int(self.cfg.rank)
+        return get_rank() if self.cfg.world_size > 1 else 0
+
     def batch_indices(self, it: int, forward_id: int,
                       rank: Optional[int] = None) -> np.ndarray:
-        r = self.cfg.rank if rank is None else rank
+        r = self.rank if rank is None else rank
         return np.asarray(self.batch_list[it][forward_id][r], np.int32)
 
     def __call__(self, it: int, forward_id: int, rank: Optional[int] = None):

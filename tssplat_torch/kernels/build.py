@@ -46,14 +46,14 @@ _INT = ctypes.c_int
 
 # C entry points: name -> (library, argument types); all return cudaError_t
 SIGNATURES = {
-    "tss_vis_launch": ("vis", [_VOID] * 4 + [_INT] * 7 + [_VOID] * 5),
+    "tss_vis_launch": ("vis", [_VOID] * 4 + [_INT] * 9 + [_VOID] * 5),
     "tss_vis_capped_launch": ("vis_capped",
-                              [_VOID] * 3 + [_INT] * 5 + [_VOID] * 3),
+                              [_VOID] * 3 + [_INT] * 7 + [_VOID] * 3),
     "tss_vis_capped_g_launch": ("vis_capped",
-                                [_VOID] * 3 + [_INT] * 5 + [_VOID] * 5),
+                                [_VOID] * 3 + [_INT] * 7 + [_VOID] * 5),
     "tss_wsr_grad_launch": ("wsr_grad", [_VOID] * 2 + [_INT] * 4 + [_VOID] * 2),
-    "tss_aa_fwd_launch": ("aa_fwd", [_VOID] * 4 + [_INT] * 3 + [_VOID] * 2),
-    "tss_aa_bwd_launch": ("aa_bwd", [_VOID] * 5 + [_INT] * 3 + [_VOID] * 2),
+    "tss_aa_fwd_launch": ("aa_fwd", [_VOID] * 4 + [_INT] * 5 + [_VOID] * 2),
+    "tss_aa_bwd_launch": ("aa_bwd", [_VOID] * 5 + [_INT] * 5 + [_VOID] * 2),
 }
 
 

@@ -16,13 +16,22 @@ The JAX package keeps static hash-table buckets here to avoid TPU
 scatters; the port does not: autograd's scatter-add of the gathered table
 rows gives the same gradients (tests/test_torch_texture.py holds the loss
 and gradients against JAX's exact loss and the port's dense path).
+
+View-sharded over W ranks (``shard=(rank, W)``, JAX's ``mesh``,
+exact_stage.py:154-245), each rank caches only its contiguous group of the
+views and its loss is its group's L1 sum over the global n·res²·3: summed
+over the ranks (the driver's one all_reduce of the loss and the parameter
+gradients, ``parallel/mesh.py sync_step``) they are the one-process loss
+and gradients. JAX's per-shard hash buckets stay unported, as the
+unsharded ones are.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.rasterize import antialias_color, interpolate, rasterize
 from ..ops.transform import transform_pos
@@ -34,7 +43,8 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
                               is_ortho: bool = False,
                               tile_k: Optional[int] = None,
                               max_px: int = 4_000_000,
-                              reason_out: Optional[list] = None
+                              reason_out: Optional[list] = None,
+                              shard: Tuple[int, int] = (0, 1)
                               ) -> Optional[dict]:
     """The static state of the exact texture stage over every view of
     ``data_all`` ("mvp", "img" with the target RGB composited over the
@@ -43,7 +53,10 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
     package refuses too: an encoding other than a plain HashGrid, or more
     foreground pixels than ``max_px`` (the knob and its default are JAX's;
     the port's cache costs ~16 B per foreground pixel and ~40 B per pixel
-    of every view, not JAX's ~1 KB per foreground pixel)."""
+    of every view, not JAX's ~1 KB per foreground pixel). ``shard`` (rank,
+    W) caches the rank-th of W contiguous groups of the views (W must
+    divide them); the foreground count that ``max_px`` bounds is summed
+    over the ranks (one all_reduce), so every rank decides alike."""
     enc_cfg = dict(material.cfg.pos_encoding_config)
     if enc_cfg.pop("otype", "HashGrid") not in ("HashGrid", "Grid") \
             or enc_cfg.pop("include_xyz", False) \
@@ -55,8 +68,13 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
         return None
 
     statics = geometry.statics
-    mvp = data_all["mvp"]
-    n = int(mvp.shape[0])
+    rank, n_shards = shard
+    n_total = int(data_all["mvp"].shape[0])
+    if n_total % n_shards:
+        raise ValueError(f"n_shards={n_shards} must divide n_views={n_total}")
+    n = n_total // n_shards
+    views = slice(rank * n, (rank + 1) * n)
+    mvp = data_all["mvp"][views]
     res = int(resolution)
     v_corner = geometry.tet_v[statics.corner_vid]
     pos_clip, rast, pix, pts = [], [], [], []
@@ -70,6 +88,10 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
         rast.append(ra[0])
     counts = [int(p.shape[0]) for p in pix]
     total_fg = sum(counts)
+    if n_shards > 1:
+        t = torch.tensor([float(total_fg)], device=v_corner.device)
+        dist.all_reduce(t)
+        total_fg = int(t.item())
     if total_fg > max_px:
         if reason_out is not None:
             reason_out.append(
@@ -82,24 +104,20 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
         "rast": rast,                                   # (n,H,W,4)
         "pix": torch.cat(pix),                          # (n_fg,) flat px
         "mask": (rast[..., 3:4] > 0).to(torch.float32),  # (n,H,W,1)
-        "gt": data_all["img"][..., :3],                 # (n,H,W,3)
-        "bg": data_all["background"],                   # (n,H,W,3)
+        "gt": data_all["img"][views, ..., :3],          # (n,H,W,3)
+        "bg": data_all["background"][views],            # (n,H,W,3)
         "xc": contract_to_unisphere(torch.cat(pts), material.bbox),
-        "n": n, "P": max(1, max(counts)), "res": res,
+        "n": n, "n_total": n_total, "P": max(1, max(counts)), "res": res,
     }
 
 
-def build_texture_exact_loss(material, statics, cache: dict, mesh=None):
+def build_texture_exact_loss(material, statics, cache: dict):
     """Loss closure (mat_params, it) -> (img_loss, reg) with the
     reference's exact texture semantics over every view of the cache:
     the material at the cached foreground points, the colours put back on
     the image (zero elsewhere), composited over the background by the
     mask, colour-antialiased, and the L1 against the target summed and
-    divided by n·res²·3, × 20; reg is 0. ``mesh`` (the JAX package's
-    view-sharded variant) raises: not ported."""
-    if mesh is not None:
-        raise NotImplementedError("the view-sharded exact texture stage is "
-                                  "not ported (ROADMAP queue 1 item 6)")
+    divided by n·res²·3 (n: the views of all shards), × 20; reg is 0."""
     n, res = cache["n"], cache["res"]
     pix, xc, mask = cache["pix"], cache["xc"], cache["mask"]
     gt, bg = cache["gt"], cache["bg"]
@@ -108,7 +126,7 @@ def build_texture_exact_loss(material, statics, cache: dict, mesh=None):
     enc_apply, net_apply = material.encoding.apply_fn, \
         material.network.apply_fn
     act = material.activation
-    denom = float(n * res * res * 3)
+    denom = float(cache["n_total"] * res * res * 3)
 
     def loss_fn(mat_params, it):
         feats = enc_apply(mat_params["encoding"], xc, it)

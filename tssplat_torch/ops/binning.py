@@ -71,6 +71,8 @@ class FaceBins(NamedTuple):
     n_drop: torch.Tensor       # (B,) int32 — 0: the lists have no caps
     nty: int
     ntx: int
+    row0: int = 0              # viewport: local row r is absolute row0 + r
+    full_h: Optional[int] = None   # of a full_h-tall image (None: H)
 
 
 class CappedBins(NamedTuple):
@@ -80,6 +82,8 @@ class CappedBins(NamedTuple):
     n_drop: torch.Tensor       # (B,) int32 — sum over tiles of count - k
     nty: int                   # tiles of CAP_TILE_H x CAP_TILE_W
     ntx: int
+    row0: int = 0              # viewport, as FaceBins
+    full_h: Optional[int] = None
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +94,8 @@ def uses_capped_layout(F: int, R: int, B: int, H: int, W: int) -> bool:
     """True where JAX's ``_rasterize_ids_pallas_jit`` leaves its flat
     layout for the capped one, for F faces, an R-column table (14 with
     winner rows, 11 without), B views at H x W. Unaligned resolutions never
-    reach JAX's binned kernels, so they stay on K1."""
+    reach JAX's binned kernels, so they stay on K1. For a slab H is the
+    slab's rows, as JAX sizes ``flat_bytes`` by the slab's tiles."""
     if H % CAP_TILE_H or W % CAP_TILE_W:
         return False
     ntiles = (H // CAP_TILE_H) * (W // CAP_TILE_W)
@@ -128,7 +133,8 @@ def default_tile_capacity(num_tris: int, resolution: Tuple[int, int]
 def capacity(k: Optional[int], F: int, resolution: Tuple[int, int]) -> int:
     """The static k of the capped layout: the heuristic when ``k`` is None,
     as a power of two no larger than next_pow2(F)
-    (pallas_raster.py:732-734)."""
+    (pallas_raster.py:732-734). ``resolution`` is the whole image's, also
+    for a slab (JAX passes (full_h, W))."""
     if k is None:
         k = default_tile_capacity(F, resolution)
     return min(next_pow2(int(k)), next_pow2(F))
@@ -220,17 +226,22 @@ def _tile_range(lo, hi, tile_px: int, n: int):
     return t0, t1, empty
 
 
-def _sorted_pairs(table, live, resolution, tile_h, tile_w):
+def _sorted_pairs(table, live, resolution, tile_h, tile_w, row0=0,
+                  full_h=None):
     """Expand every live face into one (tile, face) pair per tile its box
     meets and sort them: (faces (L,) int64 sorted by (view, tile, id),
-    counts (B*ntiles,) int64, nty, ntx)."""
+    counts (B*ntiles,) int64, nty, ntx). With a viewport ``(row0,
+    full_h)`` the face's absolute pixel rows are shifted by row0 into the
+    slab's rows and clipped to its tiles (``bin_triangles``,
+    pallas_raster.py:453-455)."""
     H, W = resolution
     B, F, _ = table.shape
     dev = table.device
     nty, ntx = -(-H // tile_h), -(-W // tile_w)
     ntiles = nty * ntx
+    fh = H if full_h is None else full_h
     px = (table[..., 0:5:2] + 1.0) * 0.5 * W - 0.5              # (B,F,3)
-    py = (table[..., 1:6:2] + 1.0) * 0.5 * H - 0.5
+    py = (table[..., 1:6:2] + 1.0) * 0.5 * fh - 0.5 - row0
     tx0, tx1, ex = _tile_range(px.amin(-1), px.amax(-1), tile_w, ntx)
     ty0, ty1, ey = _tile_range(py.amin(-1), py.amax(-1), tile_h, nty)
     live = (live & ~ex & ~ey).to(torch.int64)
@@ -253,40 +264,47 @@ def _sorted_pairs(table, live, resolution, tile_h, tile_w):
 
 @torch.no_grad()
 def bin_faces(pos_clip: torch.Tensor, edge_nbrs: Optional[torch.Tensor],
-              resolution: Tuple[int, int]) -> FaceBins:
+              resolution: Tuple[int, int], viewport=None) -> FaceBins:
     """Bin the faces of every view into TILE_H x TILE_W screen tiles (K1's
-    uncapped lists)."""
+    uncapped lists). ``resolution`` is the (slab's) H x W; ``viewport``
+    (row0, full_h) makes its rows absolute rows row0.. of a full_h-tall
+    image. A slab of 8-aligned rows may end in a partial 16-row tile."""
     B = pos_clip.shape[0]
+    row0, full_h = viewport if viewport is not None else (0, None)
     table, ok, _ = face_table(pos_clip, edge_nbrs)
     faces, counts, nty, ntx = _sorted_pairs(table, ok, resolution,
-                                            TILE_H, TILE_W)
+                                            TILE_H, TILE_W, row0, full_h)
     starts = torch.cumsum(counts, 0) - counts
     return FaceBins(table=table, tile_start=starts.to(torch.int32),
                     tile_count=counts.to(torch.int32),
                     faces=faces.to(torch.int32),
                     n_drop=torch.zeros(B, dtype=torch.int32,
                                        device=pos_clip.device),
-                    nty=nty, ntx=ntx)
+                    nty=nty, ntx=ntx, row0=int(row0), full_h=full_h)
 
 
 @torch.no_grad()
 def bin_faces_capped(pos_clip: torch.Tensor,
                      edge_nbrs: Optional[torch.Tensor],
-                     resolution: Tuple[int, int], k: int) -> CappedBins:
+                     resolution: Tuple[int, int], k: int,
+                     viewport=None) -> CappedBins:
     """Bin the faces of every view into CAP_TILE_H x CAP_TILE_W tiles and
     keep, per tile, the k smallest ids (see the module doc). A face is
     binned when its three vertices are valid (JAX's predicate: a face of
-    zero area still takes a slot; it covers no pixel)."""
+    zero area still takes a slot; it covers no pixel). ``viewport`` as in
+    ``bin_faces``; the tiles, and so the drops, are the slab's."""
     H, W = resolution
     if H % CAP_TILE_H or W % CAP_TILE_W:
         raise ValueError(f"capped layout needs H % {CAP_TILE_H} == 0 and "
                          f"W % {CAP_TILE_W} == 0, got {resolution}")
     B = pos_clip.shape[0]
     dev = pos_clip.device
+    row0, full_h = viewport if viewport is not None else (0, None)
     table, _, valid = face_table(pos_clip, edge_nbrs)
     F = table.shape[1]
     faces, counts, nty, ntx = _sorted_pairs(table, valid, resolution,
-                                            CAP_TILE_H, CAP_TILE_W)
+                                            CAP_TILE_H, CAP_TILE_W, row0,
+                                            full_h)
     starts = torch.cumsum(counts, 0) - counts
     kept = torch.clamp(counts, max=k)
     n_drop = (counts - kept).view(B, nty * ntx).sum(dim=1)
@@ -299,4 +317,5 @@ def bin_faces_capped(pos_clip: torch.Tensor,
                           device=dev)
     return CappedBins(table=table, counts=kept.to(torch.int32),
                       cand=cand.to(torch.int32).contiguous(),
-                      n_drop=n_drop.to(torch.int32), nty=nty, ntx=ntx)
+                      n_drop=n_drop.to(torch.int32), nty=nty, ntx=ntx,
+                      row0=int(row0), full_h=full_h)

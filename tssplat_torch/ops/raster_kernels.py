@@ -11,6 +11,15 @@ PyTorch version (counterpart of ``tssplat_tpu/ops/pallas_raster.py``).
 (K4 and K5 also take the place of the XLA border pass beside their TPU
 kernels.)
 
+Each kernel renders a horizontal slab of rows as well as a whole image (row-
+slab spatial sharding, ``parallel/spatial.py``): its H rows are absolute
+rows row0 .. row0 + H - 1 of a full_h-tall image, pixel centres are those of
+the absolute rows, and a vertical antialias pair counts only where both of
+its absolute rows lie in [0, full_h) (JAX's ``row_valid``). The visibility
+kernels take (row0, full_h) from their bins (``bin_faces(...,
+viewport=...)``), K4/K5 as ``viewport``; the default (0, H) is the whole
+image and gives the same bits as before the viewport existed.
+
 Each wrapper takes the plain version for tensors on the CPU, and launches
 its kernel for CUDA tensors (or raises: there is no fallback). It checks
 device, dtype, shape and contiguity, allocates the outputs, launches on
@@ -71,6 +80,13 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def _viewport(viewport, H: int) -> Tuple[int, int]:
+    """(row0, full_h) of a viewport given as (row0, full_h or None), or of
+    the whole image when it is None."""
+    row0, full_h = viewport if viewport is not None else (0, None)
+    return int(row0), int(H if full_h is None else full_h)
+
+
 # ---------------------------------------------------------------------------
 # K1 — visibility over the uncapped lists, with or without winner rows
 # ---------------------------------------------------------------------------
@@ -102,9 +118,10 @@ def visibility(bins: FaceBins, resolution: Tuple[int, int],
     if emit_g:
         g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
         gaux = torch.empty((B, 4, H, W), dtype=torch.float32, device=dev)
+    row0, full_h = _viewport((bins.row0, bins.full_h), H)
     _launch("tss_vis_launch", _ptr(table), _ptr(bins.tile_start),
             _ptr(bins.tile_count), _ptr(faces), B, F, H, W, bins.nty,
-            bins.ntx, int(emit_g), _ptr(ids), _ptr(z),
+            bins.ntx, int(emit_g), row0, full_h, _ptr(ids), _ptr(z),
             _ptr(g6) if emit_g else None, _ptr(gaux) if emit_g else None)
     visibility.launches += 1
     return (ids, z, g6, gaux) if emit_g else (ids, z)
@@ -117,19 +134,21 @@ def visibility_plain(bins: FaceBins, resolution: Tuple[int, int],
     start = bins.tile_start.long()
     ids, z = _walk_tiles(
         bins.table, lambda j, tl: bins.faces[start[tl] + j].long(),
-        bins.tile_count, bins.nty, bins.ntx, TILE_H, TILE_W, resolution)
+        bins.tile_count, bins.nty, bins.ntx, TILE_H, TILE_W, resolution,
+        _viewport((bins.row0, bins.full_h), resolution[0]))
     return (ids, z, *_winner_rows(bins.table, ids)) if emit_g else (ids, z)
 
 
 def _walk_tiles(table, face_at, count, nty, ntx, tile_h, tile_w,
-                resolution):
+                resolution, viewport):
     """The kernels' per-tile search, vectorized over (tile, pixel):
     candidate slot j of every tile whose count exceeds j at a time
     (``face_at(j, tl)`` gives the face ids at slot j of the flat tiles
     tl = view * ntiles + tile), in the kernels' arithmetic order. The tiles
     are sorted by count once (one host read), so slot j walks a prefix of
     them and the loop ends at the largest real count, never at a capacity
-    above it. Returns (ids+1 (B,H,W) int32, z (B,H,W) f32, 0 on
+    above it. Pixel centres are those of the absolute rows of ``viewport``
+    (row0, full_h). Returns (ids+1 (B,H,W) int32, z (B,H,W) f32, 0 on
     background)."""
     H, W = resolution
     B, F, _ = table.shape
@@ -142,11 +161,12 @@ def _walk_tiles(table, face_at, count, nty, ntx, tile_h, tile_w,
     row = (tiles // ntx)[:, None] * tile_h + ly[None]
     col = (tiles % ntx)[:, None] * tile_w + lx[None]
 
+    row0, full_h = viewport
     count = count.reshape(-1).long()
     order = torch.argsort(count, descending=True, stable=True)
     counts_desc = count[order].tolist()                  # host read
     px = ndc_center(col.to(torch.float32), W)[order % nt]   # sorted tiles
-    py = ndc_center(row.to(torch.float32), H)[order % nt]
+    py = ndc_center((row + row0).to(torch.float32), full_h)[order % nt]
     best_z = torch.full((B * nt, tile_h * tile_w), _INF, device=dev)
     best_id = torch.zeros((B * nt, tile_h * tile_w), dtype=torch.int32,
                           device=dev)
@@ -235,9 +255,10 @@ def visibility_capped(bins: CappedBins, resolution: Tuple[int, int]):
     z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
     g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
     gaux = torch.empty((B, 4, H, W), dtype=torch.float32, device=dev)
+    row0, full_h = _viewport((bins.row0, bins.full_h), H)
     _launch("tss_vis_capped_g_launch", _ptr(bins.table), _ptr(bins.counts),
-            _ptr(bins.cand), B, F, H, W, k, _ptr(ids), _ptr(z), _ptr(g6),
-            _ptr(gaux))
+            _ptr(bins.cand), B, F, H, W, k, row0, full_h, _ptr(ids), _ptr(z),
+            _ptr(g6), _ptr(gaux))
     visibility_capped.launches += 1
     return ids, z, g6, gaux
 
@@ -250,8 +271,10 @@ def visibility_capped_ids(bins: CappedBins, resolution: Tuple[int, int]):
     dev = bins.table.device
     ids = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    row0, full_h = _viewport((bins.row0, bins.full_h), H)
     _launch("tss_vis_capped_launch", _ptr(bins.table), _ptr(bins.counts),
-            _ptr(bins.cand), B, F, H, W, k, _ptr(ids), _ptr(z))
+            _ptr(bins.cand), B, F, H, W, k, row0, full_h, _ptr(ids),
+            _ptr(z))
     visibility_capped_ids.launches += 1
     return ids, z
 
@@ -261,7 +284,8 @@ def visibility_capped_ids_plain(bins: CappedBins,
     """Plain version of K2a: K1's walk over the candidate matrix's rows."""
     return _walk_tiles(bins.table, lambda j, tl: bins.cand[tl, j].long(),
                        bins.counts, bins.nty, bins.ntx, CAP_TILE_H,
-                       CAP_TILE_W, resolution)
+                       CAP_TILE_W, resolution,
+                       _viewport((bins.row0, bins.full_h), resolution[0]))
 
 
 def visibility_capped_plain(bins: CappedBins, resolution: Tuple[int, int]):
@@ -327,7 +351,8 @@ def _unpack_key(key: torch.Tensor):
 def boxed_pairs(bins: CappedBins, resolution: Tuple[int, int]):
     """Every live (tile, candidate) pair of the capped layout with its
     clipped pixel box, in the order of the candidate matrix: (view, face,
-    x0, x1, y0, y1, npx), int64 (P,) each; x and y are global pixel indices,
+    x0, x1, y0, y1, npx), int64 (P,) each; x and y are pixel indices of the
+    (slab's) output,
     inclusive, and npx is the number of pixel tests the pair needs (0 for
     an empty box or a face that can cover nothing)."""
     H, W = resolution
@@ -342,8 +367,11 @@ def boxed_pairs(bins: CappedBins, resolution: Tuple[int, int]):
     r = table[view, f]                           # (P,16)
     x0, x1, ex = _clip_axis(r[:, 0:5:2], W, (tile % bins.ntx) * CAP_TILE_W,
                             CAP_TILE_W)
-    y0, y1, ey = _clip_axis(r[:, 1:6:2], H, (tile // bins.ntx) * CAP_TILE_H,
+    row0, full_h = _viewport((bins.row0, bins.full_h), H)
+    y0, y1, ey = _clip_axis(r[:, 1:6:2], full_h,
+                            (tile // bins.ntx) * CAP_TILE_H + row0,
                             CAP_TILE_H)
+    y0, y1 = y0 - row0, y1 - row0                # absolute -> slab rows
     keep = ~ex & ~ey & (r[:, 9] != 0)            # inv_area 0 covers nothing
     npx = (x1 - x0 + 1) * (y1 - y0 + 1)
     return view, f, x0, x1, y0, y1, torch.where(keep, npx,
@@ -376,8 +404,9 @@ def visibility_capped_boxed_plain(bins: CappedBins,
     bws = bw[src]
     col = x0[src] + local % bws
     row = y0[src] + local // bws
+    row0, full_h = _viewport((bins.row0, bins.full_h), H)
     px = ndc_center(col.to(torch.float32), W)
-    py = ndc_center(row.to(torch.float32), H)
+    py = ndc_center((row + row0).to(torch.float32), full_h)
     r = table[view[src], f[src]]                 # (total,16)
     ax, ay, bx, by = r[:, 0], r[:, 1], r[:, 2], r[:, 3]
     cx, cy, z0, z1 = r[:, 4], r[:, 5], r[:, 6], r[:, 7]
@@ -441,11 +470,14 @@ def wsr_table_grad_plain(ids: torch.Tensor, ct6: torch.Tensor, F: int
 # K4 / K5 — silhouette antialias forward and backward (all pixel pairs)
 # ---------------------------------------------------------------------------
 
-def _pair_eval(ida, idb, za, zb, ga, gb, auxa, auxb, pax, pay, pbx, pby):
+def _pair_eval(ida, idb, za, zb, ga, gb, auxa, auxb, pax, pay, pbx, pby,
+               pair_ok):
     """The pair math of ``_aa_pairs`` (rasterize.py:880) on one axis of
     pixel pairs a -> b; colour = coverage. Channel-major g (B,6,...),
-    aux (B,4,...). Returns the quantities K4 and K5 need."""
-    differ = (ida != idb) & ((ida > 0) | (idb > 0))
+    aux (B,4,...); ``pair_ok`` is False where the pair does not exist (a
+    vertical pair with a row outside the image, JAX's ``row_valid`` cut).
+    Returns the quantities K4 and K5 need."""
+    differ = (ida != idb) & ((ida > 0) | (idb > 0)) & pair_ok
     owner_a = (ida != 0) & ((idb == 0) | (za <= zb))
     other_tri = torch.where(owner_a, idb, ida) - 1
     o = owner_a[:, None]
@@ -534,12 +566,17 @@ def _pair_grad(P, ct_a, ct_b, pax, pay, pbx, pby):
     return c
 
 
-def _pairs(ids, z, g6, gaux, axis: int):
+def _pairs(ids, z, g6, gaux, axis: int, viewport):
     """Pair operands along ``axis`` (2: horizontal a=(r,c), b=(r,c+1);
-    1: vertical a=(r,c), b=(r+1,c)) with their pixel centres."""
+    1: vertical a=(r,c), b=(r+1,c)) with the pixel centres of the absolute
+    rows of ``viewport`` (row0, full_h), and whether each pair exists:
+    always across, down only where both absolute rows lie in the image."""
     B, H, W = ids.shape
-    px, py = pixel_centers((H, W), ids.device)
+    row0, full_h = viewport
+    px, py = pixel_centers((H, W), ids.device, row0=row0, full_h=full_h)
     px, py = px.expand(H, W), py.expand(H, W)
+    absr = torch.arange(H, device=ids.device) + row0
+    inside = ((absr >= 0) & (absr < full_h))[:, None].expand(H, W)
 
     def a(x, d):                       # d: index of the H/W dim in x
         return x.narrow(d + (axis - 1), 0, x.shape[d + axis - 1] - 1)
@@ -547,8 +584,11 @@ def _pairs(ids, z, g6, gaux, axis: int):
     def b(x, d):
         return x.narrow(d + (axis - 1), 1, x.shape[d + axis - 1] - 1)
 
+    ok = a(inside, 0) & b(inside, 0) if axis == 1 else \
+        torch.ones_like(a(inside, 0))
     return (a(ids, 1), b(ids, 1), a(z, 1), b(z, 1), a(g6, 2), b(g6, 2),
-            a(gaux, 2), b(gaux, 2), a(px, 0), a(py, 0), b(px, 0), b(py, 0))
+            a(gaux, 2), b(gaux, 2), a(px, 0), a(py, 0), b(px, 0), b(py, 0),
+            ok)
 
 
 def _pad(x, axis: int, before: bool):
@@ -559,54 +599,60 @@ def _pad(x, axis: int, before: bool):
     return torch.nn.functional.pad(x, pad)
 
 
-def aa_forward(ids, z, g6, gaux) -> torch.Tensor:
+def aa_forward(ids, z, g6, gaux, viewport=None) -> torch.Tensor:
     """Antialiased silhouette coverage (B,H,W) f32 from the winner ids
-    (B,H,W) int32, z (B,H,W), g6 (B,6,H,W) and gaux (B,4,H,W)."""
+    (B,H,W) int32, z (B,H,W), g6 (B,6,H,W) and gaux (B,4,H,W); the H rows
+    are absolute rows row0.. of a full_h-tall image with ``viewport``
+    (row0, full_h)."""
     if not _on_cuda(g6, "aa_forward"):
-        return aa_forward_plain(ids, z, g6, gaux)
+        return aa_forward_plain(ids, z, g6, gaux, viewport)
     B, H, W = ids.shape
     _check_aa(ids, z, g6, gaux)
+    row0, full_h = _viewport(viewport, H)
     out = torch.empty((B, H, W), dtype=torch.float32, device=g6.device)
     _launch("tss_aa_fwd_launch", _ptr(ids), _ptr(z), _ptr(g6), _ptr(gaux),
-            B, H, W, _ptr(out))
+            B, H, W, row0, full_h, _ptr(out))
     aa_forward.launches += 1
     return out
 
 
-def aa_forward_plain(ids, z, g6, gaux) -> torch.Tensor:
+def aa_forward_plain(ids, z, g6, gaux, viewport=None) -> torch.Tensor:
     """Plain version of K4: the dense antialias chain of rasterize.py:975
     on the silhouette (horizontal pairs, then vertical)."""
+    vp = _viewport(viewport, ids.shape[1])
     out = (ids > 0).to(torch.float32)
     for axis in (2, 1):
-        ops = _pairs(ids, z, g6, gaux, axis)
+        ops = _pairs(ids, z, g6, gaux, axis, vp)
         P = _pair_eval(*ops)
         out = out + _pad(P["delta_a"], axis, before=False)
         out = out + _pad(P["delta_b"], axis, before=True)
     return out
 
 
-def aa_backward(ids, z, g6, gaux, ct) -> torch.Tensor:
+def aa_backward(ids, z, g6, gaux, ct, viewport=None) -> torch.Tensor:
     """d g6 (B,6,H,W) of ``aa_forward`` under the cotangent ct (B,H,W)."""
     if not _on_cuda(g6, "aa_backward"):
-        return aa_backward_plain(ids, z, g6, gaux, ct)
+        return aa_backward_plain(ids, z, g6, gaux, ct, viewport)
     B, H, W = ids.shape
     _check_aa(ids, z, g6, gaux)
     _check(ct, "ct", torch.float32, (B, H, W), g6.device)
+    row0, full_h = _viewport(viewport, H)
     dg6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=g6.device)
     _launch("tss_aa_bwd_launch", _ptr(ids), _ptr(z), _ptr(g6), _ptr(gaux),
-            _ptr(ct), B, H, W, _ptr(dg6))
+            _ptr(ct), B, H, W, row0, full_h, _ptr(dg6))
     aa_backward.launches += 1
     return dg6
 
 
-def aa_backward_plain(ids, z, g6, gaux, ct) -> torch.Tensor:
+def aa_backward_plain(ids, z, g6, gaux, ct, viewport=None) -> torch.Tensor:
     """Plain version of K5: the hand-derived pair backward, vectorized; each
     pair's owner gradient lands on its owner pixel."""
+    vp = _viewport(viewport, ids.shape[1])
     dg = torch.zeros_like(g6)
     for axis in (2, 1):
-        ops = _pairs(ids, z, g6, gaux, axis)
+        ops = _pairs(ids, z, g6, gaux, axis, vp)
         P = _pair_eval(*ops)
-        pax, pay, pbx, pby = ops[8:]
+        pax, pay, pbx, pby = ops[8:12]
         n = ids.shape[axis] - 1
         c = _pair_grad(P, ct.narrow(axis, 0, n), ct.narrow(axis, 1, n),
                        pax, pay, pbx, pby)

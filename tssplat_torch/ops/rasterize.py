@@ -20,6 +20,15 @@
       antialias (the texture stage), differentiable in the colour and, when
       pos_clip carries a gradient, in the positions (through K3)
 
+Every renderer below takes an optional ``viewport=(row0, full_h)``: its H
+rows are then a horizontal slab, absolute rows row0.. of a full_h-tall image
+(row-slab spatial sharding, ``parallel/spatial.py``; JAX's viewport, row0
+negative for a halo above the image). Binning shifts the faces into the
+slab's tiles, the kernels and the shading take the absolute rows' pixel
+centres, and the antialias cuts a vertical pair with a row outside the image.
+The caller zeroes what a slab renders on rows outside the image, as
+spatial.py:133-143 does.
+
 Visibility (binning + K1, K2a or K2b) runs without gradients, and can be
 run beforehand and handed in as ``vis`` (the view-chunked step keeps it
 out of the recomputed part). Which
@@ -165,24 +174,32 @@ def winner_screen_rows(tbl6: torch.Tensor, ids: torch.Tensor,
     return _WinnerRows.apply(tbl6, ids, g6_kernel)
 
 
+def _capacity_and_viewport(k, F, resolution, viewport):
+    """The capped layout's k, sized on the whole image (JAX passes (full_h,
+    W), pallas_raster.py:728-733), and the viewport as (row0, full_h)."""
+    H, W = resolution
+    row0, full_h = viewport if viewport is not None else (0, H)
+    return capacity(k, F, (full_h, W)), (int(row0), int(full_h))
+
+
 def silhouette_visibility(pos_clip: torch.Tensor, edge_nbrs: torch.Tensor,
                           resolution: Tuple[int, int],
-                          k: Optional[int] = None):
+                          k: Optional[int] = None, viewport=None):
     """Silhouette visibility without gradient: binning + K2b over the
     capped layout where the JAX package caps (``k`` per tile, default
     ``default_tile_capacity``), else K1. Returns (ids, z, the kernel's
     winner rows g6, gaux, n_drop), which ``rasterize_silhouette_with_rows``
-    takes as ``vis``."""
+    takes as ``vis``. The layout is chosen on the (slab's) H x W."""
     B, F = pos_clip.shape[0], edge_nbrs.shape[0]
     H, W = resolution
+    cap, vp = _capacity_and_viewport(k, F, resolution, viewport)
     pos = pos_clip.detach()
     with torch.no_grad():
         if uses_capped_layout(F, 14, B, H, W):
-            bins = bin_faces_capped(pos, edge_nbrs, resolution,
-                                    capacity(k, F, resolution))
+            bins = bin_faces_capped(pos, edge_nbrs, resolution, cap, vp)
             ids, z, g6k, gaux = rk.visibility_capped(bins, resolution)
         else:
-            bins = bin_faces(pos, edge_nbrs, resolution)
+            bins = bin_faces(pos, edge_nbrs, resolution, vp)
             ids, z, g6k, gaux = rk.visibility(bins, resolution)
     return ids, z, g6k, gaux, bins.n_drop
 
@@ -190,20 +207,21 @@ def silhouette_visibility(pos_clip: torch.Tensor, edge_nbrs: torch.Tensor,
 def rasterize_silhouette_with_rows(pos_clip: torch.Tensor,
                                    edge_nbrs: torch.Tensor,
                                    resolution: Tuple[int, int],
-                                   k: Optional[int] = None, vis=None):
+                                   k: Optional[int] = None, vis=None,
+                                   viewport=None):
     """Silhouette visibility + the winner's differentiable AA rows
     (``rasterize_silhouette_with_rows``, rasterize.py:794, kernel path):
     ``silhouette_visibility``, or its outputs ``vis`` computed beforehand,
     and the rows' gradient path. Returns (ids, z, g6, gaux, n_drop)."""
     ids, z, g6k, gaux, n_drop = vis if vis is not None else \
-        silhouette_visibility(pos_clip, edge_nbrs, resolution, k)
+        silhouette_visibility(pos_clip, edge_nbrs, resolution, k, viewport)
     g6 = winner_screen_rows(screen_xy_table(pos_clip, edge_nbrs.shape[0]),
                             ids, g6k)
     return ids, z, g6, gaux, n_drop
 
 
 def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
-                resolution: Tuple[int, int]) -> torch.Tensor:
+                resolution: Tuple[int, int], viewport=None) -> torch.Tensor:
     """(u, v, z/w, id+1) of each pixel's winner (``_shade_rast``,
     rasterize.py:688): barycentrics recomputed from one row gather of the
     per-face screen table, perspective-corrected by 1/w, differentiable in
@@ -215,7 +233,9 @@ def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
                      torch.zeros_like(sx))
     tbl = torch.cat([a.view(B, F, 3) for a in (sx, sy, sz, iw)], dim=-1)
     g = _row_gather(tbl, ids)                            # (B,H,W,12)
-    px, py = pixel_centers(resolution, pos_clip.device, pos_clip.dtype)
+    row0, full_h = viewport if viewport is not None else (0, None)
+    px, py = pixel_centers(resolution, pos_clip.device, pos_clip.dtype, row0,
+                           full_h)
 
     ax, bx, cx = g[..., 0], g[..., 1], g[..., 2]
     ay, by, cy = g[..., 3], g[..., 4], g[..., 5]
@@ -238,34 +258,34 @@ def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
 
 
 def visibility_ids(pos_clip: torch.Tensor, resolution: Tuple[int, int],
-                   k: Optional[int] = None):
+                   k: Optional[int] = None, viewport=None):
     """Visibility without winner rows and without gradient: binning + K2a
     over the capped layout where the JAX package caps (table R = 11), else
     K1 without rows. Returns (ids, n_drop), which ``rasterize`` takes as
     ``vis``."""
     B, F = pos_clip.shape[0], pos_clip.shape[1] // 3
     H, W = resolution
+    cap, vp = _capacity_and_viewport(k, F, resolution, viewport)
     pos = pos_clip.detach()
     with torch.no_grad():
         if uses_capped_layout(F, 11, B, H, W):
-            bins = bin_faces_capped(pos, None, resolution,
-                                    capacity(k, F, resolution))
+            bins = bin_faces_capped(pos, None, resolution, cap, vp)
             ids, _ = rk.visibility_capped_ids(bins, resolution)
         else:
-            bins = bin_faces(pos, None, resolution)
+            bins = bin_faces(pos, None, resolution, vp)
             ids, _ = rk.visibility(bins, resolution, emit_g=False)
     return ids, bins.n_drop
 
 
 def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
-              k: Optional[int] = None, vis=None):
+              k: Optional[int] = None, vis=None, viewport=None):
     """Full rasterization (``rasterize``, rasterize.py:719): visibility
     (``visibility_ids``, or its outputs ``vis`` computed beforehand), then
     the differentiable shading of the winners. Returns (rast (B,H,W,4) =
     (u, v, z/w, id+1), n_drop (B,))."""
     ids, n_drop = vis if vis is not None else \
-        visibility_ids(pos_clip, resolution, k)
-    return _shade_rast(pos_clip, ids, resolution), n_drop
+        visibility_ids(pos_clip, resolution, k, viewport)
+    return _shade_rast(pos_clip, ids, resolution, viewport), n_drop
 
 
 def interpolate(attr: torch.Tensor, rast: torch.Tensor) -> torch.Tensor:
@@ -285,25 +305,28 @@ def interpolate(attr: torch.Tensor, rast: torch.Tensor) -> torch.Tensor:
 
 class _AntialiasSilhouette(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g6, ids, z, gaux):
+    def forward(ctx, g6, ids, z, gaux, viewport):
         g6 = g6.contiguous()
         ctx.save_for_backward(g6, ids, z, gaux)
-        return rk.aa_forward(ids, z, g6, gaux)
+        ctx.viewport = viewport
+        return rk.aa_forward(ids, z, g6, gaux, viewport)
 
     @staticmethod
     def backward(ctx, ct):
         g6, ids, z, gaux = ctx.saved_tensors
-        return rk.aa_backward(ids, z, g6, gaux, ct.contiguous()), \
-            None, None, None
+        return rk.aa_backward(ids, z, g6, gaux, ct.contiguous(),
+                              ctx.viewport), None, None, None, None
 
 
 def antialias_silhouette(ids: torch.Tensor, z: torch.Tensor,
-                         g6: torch.Tensor, gaux: torch.Tensor
-                         ) -> torch.Tensor:
+                         g6: torch.Tensor, gaux: torch.Tensor,
+                         viewport=None) -> torch.Tensor:
     """Antialiased silhouette coverage (B,H,W): ``antialias`` of the
     coverage colour (rasterize.py:975), equivalently
-    ``antialias_silhouette_halo`` (:1153). Differentiable w.r.t. g6."""
-    return _AntialiasSilhouette.apply(g6, ids, z, gaux)
+    ``antialias_silhouette_halo`` (:1153). Differentiable w.r.t. g6. With
+    a ``viewport`` it is ``antialias(..., viewport, row_valid)`` of the
+    slab, JAX's dense chain there (:1012-1044)."""
+    return _AntialiasSilhouette.apply(g6, ids, z, gaux, viewport)
 
 
 def antialias_rows(rast: torch.Tensor, tbl6: torch.Tensor,
@@ -327,7 +350,7 @@ def antialias_rows(rast: torch.Tensor, tbl6: torch.Tensor,
 
 
 def antialias(rast: torch.Tensor, pos_clip: torch.Tensor,
-              edge_nbrs: torch.Tensor) -> torch.Tensor:
+              edge_nbrs: torch.Tensor, viewport=None) -> torch.Tensor:
     """Antialiased coverage (B,H,W) of the ``rasterize`` path: ``antialias``
     (rasterize.py:975) of the colour clip(id, 0, 1) without precomputed
     rows. The winner rows' value is ``antialias_rows``; their gradient goes
@@ -335,7 +358,7 @@ def antialias(rast: torch.Tensor, pos_clip: torch.Tensor,
     tbl6 = screen_xy_table(pos_clip, edge_nbrs.shape[0])
     ids, z, rows6, gaux = antialias_rows(rast, tbl6, edge_nbrs)
     g6 = winner_screen_rows(tbl6, ids, rows6)
-    return antialias_silhouette(ids, z, g6, gaux)
+    return antialias_silhouette(ids, z, g6, gaux, viewport)
 
 
 def _aa_pair_weights(id_a, id_b, z_a, z_b, g_a, g_b, aux_a, aux_b,

@@ -3,13 +3,15 @@
 ``tssplat_tpu/ops/rasterize.py:48-71``).
 
 Pixel (row r, col c) has NDC centre ((c+.5)/W*2-1, (r+.5)/H*2-1): row 0
-is NDC y = -1, with no y-flip. A vertex with w <= 1e-9 is invalid and its
+is NDC y = -1, with no y-flip. A slab of rows (spatial sharding) is given
+as a viewport ``(row0, full_h)``: its local row r is absolute row row0 + r
+of a full_h-tall image. A vertex with w <= 1e-9 is invalid and its
 faces are discarded.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,11 +28,16 @@ def ndc_center(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def pixel_centers(resolution: Tuple[int, int], device,
-                  dtype=torch.float32):
-    """Pixel-centre NDC grids, broadcastable as (1,W) and (H,1)."""
+                  dtype=torch.float32, row0: int = 0,
+                  full_h: Optional[int] = None):
+    """Pixel-centre NDC grids, broadcastable as (1,W) and (H,1). With
+    ``(row0, full_h)`` the H rows are a horizontal slab: local row r is
+    absolute row row0 + r of a full_h-tall image (``_pixel_centers``,
+    rasterize.py:48); row0 may be negative (a halo above the image)."""
     H, W = resolution
     x = ndc_center(torch.arange(W, dtype=dtype, device=device), W)
-    y = ndc_center(torch.arange(H, dtype=dtype, device=device), H)
+    y = ndc_center(torch.arange(H, dtype=dtype, device=device) + float(row0),
+                   H if full_h is None else full_h)
     return x[None, :], y[:, None]
 
 

@@ -42,7 +42,9 @@ checkout of another commit of this repository, for example unpacked by
 tree's sources and times both trees in the order parent, this, this,
 parent, with the outputs' equality across the trees (K3's to rtol 1e-5;
 for ``vis`` also K1, and the parent's K2a and K2b one view at a time). One JSON line per
-measurement. Needs a CUDA device and nvcc.
+measurement. Needs a CUDA device and nvcc. The C entries call a tree's
+kernels with the whole-image viewport (row0 0, full_h H), which a tree
+older than the kernels' slab form does not take.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ def run_capped(lib, bins: CappedBins, res, emit_g: bool):
     z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     args = (bins.table.data_ptr(), bins.counts.data_ptr(),
-            bins.cand.data_ptr(), B, F, H, W, bins.cand.shape[1],
+            bins.cand.data_ptr(), B, F, H, W, bins.cand.shape[1], 0, H,
             ids.data_ptr(), z.data_ptr())
     if emit_g:
         g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
@@ -127,7 +129,8 @@ def run_k1(lib, bins, res):
     err = entry(lib, "tss_vis_launch")(
         bins.table.data_ptr(), bins.tile_start.data_ptr(),
         bins.tile_count.data_ptr(), bins.faces.data_ptr(), B, F, H, W,
-        bins.nty, bins.ntx, 1, ids.data_ptr(), z.data_ptr(), g6.data_ptr(),
+        bins.nty, bins.ntx, 1, 0, H, ids.data_ptr(), z.data_ptr(),
+        g6.data_ptr(),
         gaux.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA error {err} at launch")
@@ -160,13 +163,13 @@ def run_aa(libs, inp, ct=None):
     ptrs = [t.data_ptr() for t in inp]
     if ct is None:
         out = torch.empty((B, H, W), dtype=torch.float32, device=ids.device)
-        err = entry(libs[0], "tss_aa_fwd_launch")(*ptrs, B, H, W,
+        err = entry(libs[0], "tss_aa_fwd_launch")(*ptrs, B, H, W, 0, H,
                                                   out.data_ptr(), stream)
     else:
         out = torch.empty((B, 6, H, W), dtype=torch.float32,
                           device=ids.device)
         err = entry(libs[1], "tss_aa_bwd_launch")(
-            *ptrs, ct.data_ptr(), B, H, W, out.data_ptr(), stream)
+            *ptrs, ct.data_ptr(), B, H, W, 0, H, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"CUDA error {err} at launch")
     return out
@@ -186,7 +189,7 @@ def time_aa(fwd, bwd, inp, ct) -> dict:
         "K5_flushed_ms": cuda_ms(lambda: bwd(*inp, ct), flush=True)}
 
 
-def aa_pair_counts(ids, z, g6, gaux) -> dict:
+def aa_pair_counts(ids, z, g6, gaux, viewport=None) -> dict:
     """What K4 and K5 read beyond the ids, over both axes' pairs (host
     reads): the pairs whose ids differ and the valid ones among them; the
     pixels whose z decides an owner (both sides of a differing pair
@@ -196,10 +199,11 @@ def aa_pair_counts(ids, z, g6, gaux) -> dict:
     n_differ = n_valid = 0
     need_z, owner, in_valid = (torch.zeros_like(ids, dtype=torch.bool)
                                for _ in range(3))
+    vp = rk._viewport(viewport, ids.shape[1])
     for axis in (2, 1):
-        ops = rk._pairs(ids, z, g6, gaux, axis)
+        ops = rk._pairs(ids, z, g6, gaux, axis, vp)
         ida, idb = ops[0], ops[1]
-        d = (ida != idb) & ((ida > 0) | (idb > 0))
+        d = (ida != idb) & ((ida > 0) | (idb > 0)) & ops[12]
         P = rk._pair_eval(*ops)
         n_differ += int(d.sum())
         n_valid += int(P["valid"].sum())
@@ -216,13 +220,13 @@ def aa_pair_counts(ids, z, g6, gaux) -> dict:
             "px_in_a_valid_pair": int(in_valid.sum())}
 
 
-def aa_bounds(inp) -> dict:
+def aa_bounds(inp, viewport=None) -> dict:
     """Pair counts of ``inp`` and K4's and K5's bounds on them: bytes of the
     ids and the output at every pixel (K4 8 B/px, K5 28 B/px), z where it
     decides an owner (4 B), the owner's row (40 B), and for K5 the
     cotangent at the pixels of a valid pair (4 B); f32 operations 100 (K4)
     and 150 (K5) per differing pair."""
-    c = aa_pair_counts(*inp)
+    c = aa_pair_counts(*inp, viewport=viewport)
     P = inp[0].numel()
     rows = 4 * c["px_z"] + 40 * c["px_owner"]
     return {"pixels": P, **c,

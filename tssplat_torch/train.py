@@ -35,6 +35,18 @@ switch, periodic remeshing (``remesh_every``), logs, exports (the textured
 OBJ bake after the texture stage), checkpoints, resume and the SIGTERM/SIGINT
 finish. Knobs of parts not yet
 ported raise ``NotImplementedError`` (``_refuse_unported``).
+
+Over W > 1 ranks (processes of one ``torch.distributed`` group, started by
+``torchrun`` or ``tools/run_ranks.py``; ``main`` joins the group) the ranks
+stand for the JAX package's devices, in its three modes (train.py:514-590):
+view data parallelism (each rank takes its share of the batch's views, in
+chunks of view_chunk / W where the batch is chunked), per-rank slices of
+the loader (``data.world_size`` = W: each rank loads its own slice), and
+row-slab spatial sharding (``spatial`` = n_sp: a (view, sp) grid of
+ranks, ``parallel/spatial.py``). One collective a step (``parallel/mesh.py
+sync_step``) gives every rank the whole batch's gradient and logged
+scalars, so every rank applies the same update to the same bits. Rank 0
+alone writes exports and checkpoints.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from . import data as _data  # noqa: F401 — registers the data loaders
@@ -64,9 +77,13 @@ from .ops.rasterize import interpolate, rasterize
 from .ops.transform import transform_pos
 from .optim import (adam, adam_uniform, apply_updates, cosine_annealing_lr,
                     cosine_decay_schedule)
+from .parallel.mesh import BROADCAST, MEAN, SUM, shard_batch, sync_step
+from .parallel.spatial import (shard_spatial_train_batch, slab_rows,
+                               spatial_geometry_loss)
 from .render.pipeline import render_views, render_visibility
 from .utils.checkpoint import (latest_checkpoint_step, restore_checkpoint,
                                save_checkpoint)
+from .utils.env import get_rank, get_world_size, init_distributed
 from .utils.profiling import ThroughputMeter
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -313,7 +330,9 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                     tet_v_frozen: Optional[torch.Tensor] = None,
                     texture_sample_px: int = 0,
                     texture_cache: Optional[dict] = None,
-                    texture_exact_loss: Optional[Callable] = None):
+                    texture_exact_loss: Optional[Callable] = None,
+                    sync: Optional[str] = None,
+                    spatial: Optional[Tuple[int, int, int]] = None):
     """Build ``step(state, batch, it) -> (state, (loss, img_loss, reg,
     n_drop))``. ``batch`` holds "mvp" (B,4,4) and "img" (B,H,W,C) whose
     last channel is the target alpha, plus "campos" (B,3) and "d"
@@ -326,7 +345,14 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
     params are the material's, the geometry ``tet_v_frozen`` stays put,
     and the loss is ``texture_exact_loss(params, it)`` (the batch is not
     read), else the sampled loss with ``texture_sample_px``, else the
-    dense colour render of the batch (which then needs "background")."""
+    dense colour render of the batch (which then needs "background").
+
+    Over ranks, ``batch`` is this rank's share and ``sync`` how the ranks'
+    gradients and (img_loss, reg, n_drop) combine before the update
+    (``parallel/mesh.py``: MEAN, SUM or BROADCAST); the loss is then
+    img_loss x 100 + reg of the combined values, alike on every rank.
+    ``spatial`` = (rank, n_view, n_sp) takes the loss of the rank's row
+    slab (``parallel/spatial.py spatial_geometry_loss``)."""
     texture = material_fn is not None
 
     def texture_grads(params, it, batch):
@@ -344,9 +370,21 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
         return (loss.detach(), il.detach(), reg, zero,
                 tree_unflatten(x, list(grads)))
 
+    def spatial_grads(tet_v, it, batch):
+        x = tet_v.detach().requires_grad_(True)
+        loss, (il, rg, nd) = spatial_geometry_loss(
+            x, statics, batch, it, *spatial, resolution, is_ortho=is_ortho,
+            tile_k=tile_k, fit_depth=fit_depth, fit_normal=fit_normal,
+            normal_weight=normal_weight)
+        grad, = torch.autograd.grad(loss, [x])
+        return loss.detach(), il.detach(), rg.detach(), nd, grad
+
     def step(state: TrainState, batch: dict, it: int):
-        if texture and (texture_exact_loss is not None
-                        or texture_sample_px):
+        if spatial is not None:
+            loss, img_loss, reg, n_drop, grads = spatial_grads(
+                state.params, it, batch)
+        elif texture and (texture_exact_loss is not None
+                          or texture_sample_px):
             loss, img_loss, reg, n_drop, grads = texture_grads(
                 state.params, it, batch)
         else:
@@ -357,6 +395,11 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                 tile_k=tile_k, view_chunk=view_chunk,
                 material_fn=material_fn,
                 mat_params=state.params if texture else None)
+        if sync is not None:
+            leaves, img_loss, reg, n_drop = sync_step(
+                tree_leaves(grads), img_loss, reg, n_drop, sync)
+            grads = tree_unflatten(grads, leaves)
+            loss = img_loss * 100.0 + reg
         with torch.no_grad():
             updates, opt_state = update_fn(grads, state.opt_state)
             params = apply_updates(state.params, updates)
@@ -449,10 +492,6 @@ def _refuse_unported(cfg) -> None:
     if stage not in ("geometry", "texture"):
         raise ValueError(f"unknown fitting_stage {stage!r} (geometry or "
                          f"texture)")
-    if int(cfg.get("spatial", 0) or 0) > 1:
-        _not_ported("spatial > 1", 6)
-    if int(cfg.get("data", {}).get("world_size", 1)) > 1:
-        _not_ported("data.world_size > 1", 6)
     for knob in ("debug_nans", "anomaly"):
         if cfg.get(knob, False):
             _not_ported(knob, 7)
@@ -462,11 +501,13 @@ def _refuse_unported(cfg) -> None:
 
 def _exact_texture_loss(cfg, geometry, material, dataloader, resolution,
                         is_ortho, tile_k, fit_depth, batch_size,
-                        num_forward_per_iter):
+                        num_forward_per_iter, rank=0, n_shards=1):
     """The exact texture path's loss, or None after the loud warning with
-    JAX's reason (train.py:604-666): depth or normal terms, more than one
-    forward or a batch other than every view, an encoding other than a
-    plain HashGrid, or more foreground pixels than texture_exact_max_px."""
+    JAX's reason (train.py:604-666): depth or normal terms, per-rank slices
+    of the loader (JAX's multi-host), more than one forward or a batch
+    other than every view, an encoding other than a plain HashGrid, or more
+    foreground pixels than texture_exact_max_px. ``n_shards`` > 1 caches
+    the rank-th of n_shards groups of the views (view-sharded)."""
     from .materials.exact_stage import (build_texture_exact_cache,
                                         build_texture_exact_loss)
     n_views = int(dataloader.data_all["mvp"].shape[0])
@@ -474,6 +515,8 @@ def _exact_texture_loss(cfg, geometry, material, dataloader, resolution,
     if fit_depth or bool(cfg.get("fit_normal", False)):
         reason = ("the stage fits depth/normal terms (exact path computes "
                   "the color L1 + AA only)")
+    elif int(cfg.get("data", {}).get("world_size", 1)) > 1:
+        reason = "multi-host runs are not supported by the exact path"
     elif num_forward_per_iter != 1 or batch_size != n_views:
         reason = (f"the exact path needs ONE forward covering every dataset "
                   f"view (batch_size == {n_views} views, "
@@ -485,12 +528,14 @@ def _exact_texture_loss(cfg, geometry, material, dataloader, resolution,
             geometry, material, dataloader.data_all, resolution,
             is_ortho=is_ortho, tile_k=tile_k,
             max_px=int(cfg.get("texture_exact_max_px", 4_000_000)),
-            reason_out=reasons)
+            reason_out=reasons, shard=(rank, n_shards))
         if cache is not None:
             print(f"exact texture fast path: {cache['n']} views, "
                   f"P={cache['P']} fg pixels/view, {cache['xc'].shape[0]} "
                   f"in all; visibility cached, table gradient by "
-                  f"scatter-add", flush=True)
+                  f"scatter-add"
+                  + (f", view-sharded over {n_shards} ranks"
+                     if n_shards > 1 else ""), flush=True)
             return build_texture_exact_loss(material, geometry.statics,
                                             cache)
         reason = reasons[0] if reasons else "cache build failed"
@@ -500,15 +545,44 @@ def _exact_texture_loss(cfg, geometry, material, dataloader, resolution,
     return None
 
 
+def _rank_check(cfg, rank: int, world: int) -> None:
+    """Over W > 1 ranks: the process group must exist, data.world_size must
+    be 1 or W, and with per-rank slices data.rank defaults to the rank and
+    must not name another (train.py:433-447, 545-553)."""
+    if world <= 1:
+        return
+    if not dist.is_initialized():
+        raise RuntimeError(f"{world} ranks but no process group: call "
+                           f"tssplat_torch.utils.env.init_distributed() "
+                           f"first (main does)")
+    data_world = int(cfg.data.get("world_size", 1))
+    if data_world not in (1, world):
+        raise ValueError(f"data.world_size={data_world} must equal the "
+                         f"number of ranks={world} in multi-rank runs")
+    if data_world > 1:
+        cfg_rank = cfg.data.get("rank", None)
+        if cfg_rank is None:
+            cfg.data["rank"] = rank
+        elif int(cfg_rank) != rank:
+            raise ValueError(
+                f"data.rank={cfg_rank} != the process's rank={rank}: in a "
+                f"multi-rank run each process must load its own rank's "
+                f"slice (omit data.rank to default it per process)")
+
+
 def train(cfg, device: DeviceLike = None):
     """Run the stage ``fitting_stage`` of ``cfg`` (geometry or texture) on
     ``device`` (``cuda`` unless the caller asks for the CPU); returns
-    (state, geometry). ``data_parallel`` is accepted and has nothing to do
-    on one device."""
+    (state, geometry). Over W > 1 ranks (the process group joined first,
+    see the module doc) each rank calls it with its own device."""
     dev = resolve_device(device)
     _refuse_unported(cfg)
+    rank, world = get_rank(), get_world_size()
+    _rank_check(cfg, rank, world)
+    is_main = rank == 0
     verbose = cfg.get("verbose", False)
-    texture = cfg.get("fitting_stage", "geometry") == "texture"
+    stage = cfg.get("fitting_stage", "geometry")
+    texture = stage == "texture"
     out_path = cfg.output_path
     os.makedirs(os.path.join(out_path, "final"), exist_ok=True)
 
@@ -572,18 +646,58 @@ def train(cfg, device: DeviceLike = None):
         print(f"resumed from checkpoint at iter {start_iter - 1}")
 
     batch_size = int(cfg.data.get("batch_size", 1))
+    data_world = int(cfg.data.get("world_size", 1))
+    # the ranks' modes (train.py:514-590): spatial (a (view, sp) grid of
+    # ranks), per-rank loader slices (data.world_size = W), view data
+    # parallelism; otherwise every rank runs the whole batch
+    spatial = None                      # (rank, n_view, n_sp)
+    n_sp = int(cfg.get("spatial", 0) or 0)
+    if n_sp > 1:
+        n_view = max(1, world // n_sp)
+        if (not texture and data_world == 1 and world % n_sp == 0
+                and batch_size % n_view == 0):
+            spatial = (rank, n_view, n_sp)
+            print(f"spatial sharding: ('view','sp') = ({n_view},{n_sp}) "
+                  f"over {world} ranks (batch {batch_size}, "
+                  f"{slab_rows(resolution, n_sp)}-row slabs)", flush=True)
+        else:
+            print(f"spatial={n_sp} incompatible (stage={stage}, "
+                  f"devices={world}, batch={batch_size}, single-host "
+                  f"only) — disabled", flush=True)
+    view_dp = False
+    sync = None
+    if world > 1:
+        if spatial is not None:
+            sync = SUM
+        elif data_world == world:
+            sync = MEAN
+            print(f"data-parallel over {world} ranks (per-rank loader "
+                  f"slices, global batch {batch_size * world})", flush=True)
+        elif bool(cfg.get("data_parallel", True)) \
+                and batch_size % world == 0:
+            view_dp, sync = True, MEAN
+            print(f"data-parallel over {world} ranks (global batch "
+                  f"{batch_size})", flush=True)
+        else:
+            sync = BROADCAST
+            print(f"data-parallel off: batch {batch_size} over {world} "
+                  f"ranks — every rank runs the whole batch", flush=True)
     steps = {}
     tile_k = _validated_tile_k(geometry, dataloader, resolution, is_ortho)
 
     vc_cfg = cfg.get("view_chunk", "auto")
-    if vc_cfg == "auto":
-        view_chunk = _auto_view_chunk(batch_size, 1, resolution)
+    n_shard = world if view_dp else 1
+    if spatial is not None or data_world > 1:
+        view_chunk = 0
+    elif vc_cfg == "auto":
+        view_chunk = _auto_view_chunk(batch_size, n_shard, resolution)
     else:
         view_chunk = int(vc_cfg)
     if view_chunk and not (batch_size % view_chunk == 0
-                           and batch_size > view_chunk):
+                           and batch_size > view_chunk
+                           and view_chunk % n_shard == 0):
         print(f"view_chunk={view_chunk} incompatible with batch "
-              f"{batch_size} over 1 devices — disabled", flush=True)
+              f"{batch_size} over {n_shard} devices — disabled", flush=True)
         view_chunk = 0
     if view_chunk:
         print(f"view microbatching: {batch_size // view_chunk} chunks of "
@@ -601,11 +715,30 @@ def train(cfg, device: DeviceLike = None):
         print(f"texture cache: {texture_cache['positions'].shape[0]} views, "
               f"P={texture_cache['positions'].shape[1]} fg pixels",
               flush=True)
+    if texture and sample_px and view_dp:
+        # the draws are over the global batch: every rank runs it whole
+        view_dp, sync = False, BROADCAST
+        print("sampled texture path: every rank runs the whole batch",
+              flush=True)
+    exact_sync = sync
     if texture and not sample_px and \
             bool(cfg.get("texture_exact_fast", True)):
+        n_views = int(dataloader.data_all["mvp"].shape[0])
+        n_shards = 1
+        if view_dp:
+            if n_views % world == 0:
+                n_shards, exact_sync = world, SUM
+            else:
+                exact_sync = BROADCAST
+                print(f"exact texture: {n_views} views don't divide "
+                      f"{world} devices — running the exact path "
+                      f"replicated (no view sharding)", flush=True)
         texture_exact = _exact_texture_loss(
             cfg, geometry, material, dataloader, resolution, is_ortho,
-            tile_k, fit_depth_cfg, batch_size, num_forward_per_iter)
+            tile_k, fit_depth_cfg, batch_size, num_forward_per_iter,
+            rank=rank if n_shards > 1 else 0, n_shards=n_shards)
+        if texture_exact is not None:
+            sync = exact_sync
 
     def get_step(fit_depth_on: bool):
         if fit_depth_on not in steps:
@@ -614,10 +747,12 @@ def train(cfg, device: DeviceLike = None):
                 is_ortho=is_ortho, fit_depth=fit_depth_on,
                 fit_normal=bool(cfg.get("fit_normal", False)),
                 normal_weight=float(cfg.get("fit_normal_weight", 10.0)),
-                tile_k=tile_k, view_chunk=view_chunk,
+                tile_k=tile_k,
+                view_chunk=view_chunk // world if view_dp else view_chunk,
                 material_fn=material_fn, tet_v_frozen=geometry.tet_v,
                 texture_sample_px=sample_px, texture_cache=texture_cache,
-                texture_exact_loss=texture_exact)
+                texture_exact_loss=texture_exact, sync=sync,
+                spatial=spatial)
         return steps[fit_depth_on]
 
     meter = ThroughputMeter()
@@ -644,9 +779,10 @@ def train(cfg, device: DeviceLike = None):
     try:
         for it in range(start_iter, total_iters):
             if stop_requested["flag"]:
-                save_checkpoint(ckpt_dir, it - 1, state, keep=keep)
-                print(f"preempted: checkpoint written at iter {it - 1} "
-                      f"(resume with resume=true)", flush=True)
+                if is_main:
+                    save_checkpoint(ckpt_dir, it - 1, state, keep=keep)
+                    print(f"preempted: checkpoint written at iter {it - 1} "
+                          f"(resume with resume=true)", flush=True)
                 break
 
             # periodic remeshing (train.py:738-756): the deformed volume
@@ -679,6 +815,10 @@ def train(cfg, device: DeviceLike = None):
                 batch = {} if texture_exact is not None else {
                     k: v for k, v in dataloader(it, forw_id).items()
                     if k not in ("resolution", "spp")}
+                if view_dp:
+                    batch = shard_batch(batch, rank, world, view_chunk)
+                elif spatial is not None:
+                    batch = shard_spatial_train_batch(batch, *spatial)
                 state, (loss, img_loss, reg, n_drop) = step_fn(state, batch,
                                                                it)
                 n_steps += 1
@@ -700,7 +840,8 @@ def train(cfg, device: DeviceLike = None):
                           f"be revalidated at the next export (raise tile_k "
                           f"/ validate_tile_capacity to fix now)", flush=True)
 
-            if checkpoint_every and it and it % checkpoint_every == 0:
+            if is_main and checkpoint_every and it \
+                    and it % checkpoint_every == 0:
                 save_checkpoint(ckpt_dir, it, state, keep=keep)
 
             if it % export_every == 0 and not texture:
@@ -716,12 +857,13 @@ def train(cfg, device: DeviceLike = None):
                               f"the startup margin)", flush=True)
                         tile_k = new_k
                         steps.clear()
-                d = os.path.join(out_path, f"mesh{it:05d}")
-                os.makedirs(d, exist_ok=True)
-                geometry.export(d, f"{it:05d}")
-                if verbose:
-                    _dump_images(out_path, it, state, dataloader, geometry,
-                                 resolution)
+                if is_main:
+                    d = os.path.join(out_path, f"mesh{it:05d}")
+                    os.makedirs(d, exist_ok=True)
+                    geometry.export(d, f"{it:05d}")
+                    if verbose:
+                        _dump_images(out_path, it, state, dataloader,
+                                     geometry, resolution)
     finally:
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
@@ -734,15 +876,17 @@ def train(cfg, device: DeviceLike = None):
     final = os.path.join(out_path, "final")
     if not texture:
         geometry.set_tet_v(state.params)
-    geometry.export(final, "final", save_npy=True)
+    if is_main:
+        geometry.export(final, "final", save_npy=True)
     if material is not None:
-        # the material and the textured OBJ bake (train.py:850-860;
-        # reference trainer.py:187-189)
-        from .materials.export import export_textured_obj
         material.params = state.params
-        material.export(final, "material")
-        export_textured_obj(geometry, material, final, "material",
-                            step=total_iters)
+        if is_main:
+            # the material and the textured OBJ bake (train.py:850-860;
+            # reference trainer.py:187-189)
+            from .materials.export import export_textured_obj
+            material.export(final, "material")
+            export_textured_obj(geometry, material, final, "material",
+                                step=total_iters)
     return state, geometry
 
 
@@ -770,12 +914,16 @@ def _dump_images(out_path, it, state, dataloader, geometry, resolution):
 
 def main(argv=None, device: DeviceLike = None):
     """``--config file.yaml`` plus ``key.sub=value`` overrides -> train();
-    returns its (state, geometry)."""
+    returns its (state, geometry). Joins the process group first when the
+    environment names more than one rank (``torchrun --nproc-per-node N -m
+    tssplat_torch.train ...``); each rank then trains on its own card, or
+    on ``device``."""
     parser = argparse.ArgumentParser(prog="python -m tssplat_torch.train")
     parser.add_argument("--config", required=True, help="path to config file")
     args, extras = parser.parse_known_args(argv)
+    rank_dev = init_distributed(device=device)
     cfg = load_config(args.config, cli_args=extras)
-    return train(cfg, device=device)
+    return train(cfg, device=device if rank_dev is None else rank_dev)
 
 
 if __name__ == "__main__":
