@@ -169,14 +169,38 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                iteration's loss within rtol 1e-5 of one process. Every
                rank's tet_v (material) the same bits; one line per run:
                seconds, peak memory and launches an iteration of each rank
+ 14. image to 3D, and the rest (``image_to_3d_phase``, run after 13
+               (b)-(e) in phase 10's directory, on its 18 sphere meshes):
+               (a) the SDS driver through main() on configs/img_to_3D.yaml
+               plus an ``sds:`` block (target_image guidance toward phase
+               10's 120-view bank of 512², 4 views an iteration, 12
+               iterations), render: alpha, then render: normal (the
+               one-channel bank broadcast over the normals): its it/s,
+               peak memory and launches an iteration (K2b or K1 for alpha,
+               K2a or K1 for normal, K3, K4, K5 once each), final/final.veg;
+               (b) a Wonder3D-layout directory of phase 10's ellipsoid (six
+               named views, tests/test_wonder3d.py's orthographic cameras,
+               256² PNGs from the port's rasterizer) fitted by train() with
+               Wonder3DDataLoader at 512², renderer.is_orhto, img_to_3D.yaml's
+               geometry and optimizer, batch 6, 24 iterations; (c)
+               TetMeshSkeletonGeometry (3 capsules along the ellipsoid's
+               long axis) through train() at gso.yaml's width for 8
+               iterations; after each of (a)-(c) the kernels it launched on
+               one batch of its views against their plain versions
+               (``_check_chunk``); (d) 2 iterations of phase 10's config
+               plain, with anomaly=true and with debug_nans=true: the same
+               losses to the bit, and a NaN planted in K3's input trapped
+               by the NaN trap, naming the kernel
 The launch counts are zeroed just before each main-path phase (4, 7, 8,
-10a-c, 11a-b, 12c, 13b-e) and read just after it. Then one JSON line of per-kernel
-results (launches of K1, K3, K4, K5 from phase 4, of K2b from 7, of K2a
-from 8; ``launches_texture`` from phase 11 (a); ``launches_remesh``, an
-iteration of 12 (c) before and after the remesh; ``viewport_max_err``,
+10a-c, 11a-b, 12c, 13b-e, each run of 14) and read just after it. Then one
+JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase 4, of
+K2b from 7, of K2a from 8; ``launches_texture`` from phase 11 (a);
+``launches_remesh``, an iteration of 12 (c) before and after the remesh;
+``launches_image_to_3d``, each run of 14; ``viewport_max_err``,
 ``viewport_ms`` and ``viewport_bound_ms`` of 13 (a) for K1, K2a, K2b, K4
 and K5), the nvidia-smi line, and as the last line {"ok": true, "device":
-{...}}.
+{...}}. Phase 14 alone, from Python on the card:
+``chip_smoke.image_to_3d_alone(smi)``.
 """
 
 import contextlib
@@ -674,9 +698,11 @@ def main():
               flush=True)
 
     del ms_geo, ms_batch, two, two_cpu
-    texture_counts = driver_phase(smi)
+    texture_counts, i3d_counts = driver_phase(smi)
     for r in results:
         r["launches_texture"] = texture_counts.get(r["name"], 0)
+        r["launches_image_to_3d"] = {run: c.get(r["name"], 0)
+                                     for run, c in i3d_counts.items()}
     before, after = pipeline_phase(smi)
     for r in results:
         r["launches_remesh"] = {"before": before[r["name"]],
@@ -1114,17 +1140,80 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def driver_phase(smi, views=120, res=512, device=None):
-    """Phases 10 and 11: configs/gso.yaml through tssplat_torch.train.main
-    at ``views`` views of res² (120 of 512², see the module docstring) on
-    ``device`` (the card unless given), the geometry stage and then the
-    texture stage on its result. Returns the launch counts of 11 (a)."""
-    from tssplat_torch.mesh.spheres import icosphere
+def _make_runner(smi, tmp, base, views, res, device=None):
+    """``run(label, iters, want, *over, config=gso.yaml, common=base)``:
+    tssplat_torch.train.main in process on ``device``, in ``tmp``, each
+    run's output in ``tmp/label``, its line printed (see below)."""
     from tssplat_torch.ops import raster_kernels as rk
+    import tssplat_torch.train as tt
+    from tssplat_torch.utils.tree import tree_leaves
+
+    gso = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                       "gso.yaml")
+
+    def run(label, iters, want, *over, config=gso, common=None,
+            size=f"{views}x{res}^2"):
+        """main() on ``config`` (gso.yaml) with ``common`` (``base``)
+        and ``over`` for ``iters`` iterations; requires finite losses,
+        no warning and, unless ``want`` is None, the launch counts
+        ``want`` (every other kernel 0); returns the logged
+        (iteration, img_loss) pairs, the output directory and the
+        printed text. ``size`` labels the views in the printed line."""
+        out = f"{tmp}/{label}"
+        argv = ["--config", config, *(base if common is None
+                                      else common),
+                f"output_path={out}", f"data.total_num_iter={iters}",
+                *over]
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            state, _ = tt.main(argv, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = rk.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        text = "".join(tee.text)
+        logged = [(int(i), float(x)) for i, x in re.findall(
+            r"iter=\s*(\d+), img_loss=([0-9.]+)", text)]
+        ips = float(re.search(r"iters/sec: ([0-9.]+)", text).group(1))
+        meter = re.findall(r"\[([0-9.]+) iters/s", text)
+        print(f"[driver] {label}: {ips:.3f} it/s (the driver's count, "
+              f"all {iters} iterations and their exports); "
+              f"{meter[-1] if meter else 'n/a'} it/s from iteration 1 to "
+              f"the last log (the log's meter); {size}; peak "
+              f"{peak:.2f} GiB; launches an iteration "
+              f"{json.dumps({k: n / iters for k, n in counts.items()})}"
+              f"; {secs:.1f} s; img_loss {logged[0][1]} -> "
+              f"{logged[-1][1]}; on {smi}", flush=True)
+        require("WARNING" not in text, f"{label}: a warning: {text}")
+        require(all(math.isfinite(x) for _, x in logged)
+                and all(bool(torch.isfinite(p).all())
+                        for p in tree_leaves(state.params)),
+                f"{label}: non-finite loss or parameters {logged}")
+        if want is not None:
+            full = dict.fromkeys(counts, 0)
+            full.update(want)
+            require(counts == full, f"{label}: launches {counts} over "
+                    f"{iters} iterations, expected {full}")
+        return logged, out, text
+
+    return run
+
+
+def driver_phase(smi, views=120, res=512, device=None):
+    """Phases 10, 11, 13 (b)-(e) and 14: configs/gso.yaml through
+    tssplat_torch.train.main at ``views`` views of res² (120 of 512², see
+    the module docstring) on ``device`` (the card unless given), the
+    geometry stage, the texture stage on its result, the ranks, then image
+    to 3D in the same directory. Returns the launch counts of 11 (a) and
+    those of 14's runs ({run: counts})."""
+    from tssplat_torch.mesh.spheres import icosphere
     from tssplat_torch.tools.synthetic import (write_multisphere_key_points,
                                                write_synthetic_dataset)
     import tssplat_torch.train as tt
-    from tssplat_torch.utils.tree import tree_leaves
 
     gso = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                        "gso.yaml")
@@ -1144,50 +1233,7 @@ def driver_phase(smi, views=120, res=512, device=None):
                 f"geometry.key_points_file_path={tmp}/kp.json",
                 f"geometry.tetwild_cache_folder={tmp}/cache"]
 
-        def run(label, iters, want, *over):
-            """main() on gso.yaml with ``over`` for ``iters`` iterations;
-            requires finite losses, no warning and, unless ``want`` is
-            None, the launch counts ``want`` (every other kernel 0);
-            returns the logged (iteration, img_loss) pairs, the output
-            directory and the printed text."""
-            out = f"{tmp}/{label}"
-            argv = ["--config", gso, *base, f"output_path={out}",
-                    f"data.total_num_iter={iters}", *over]
-            tee = _Tee(sys.stdout)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            rk.reset_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(tee):
-                state, _ = tt.main(argv, device=device)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            counts = rk.launch_counts()
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            text = "".join(tee.text)
-            logged = [(int(i), float(x)) for i, x in re.findall(
-                r"iter=\s*(\d+), img_loss=([0-9.]+)", text)]
-            ips = float(re.search(r"iters/sec: ([0-9.]+)", text).group(1))
-            meter = re.findall(r"\[([0-9.]+) iters/s", text)
-            print(f"[driver] {label}: {ips:.3f} it/s (the driver's count, "
-                  f"all {iters} iterations and their exports); "
-                  f"{meter[-1] if meter else 'n/a'} it/s from iteration 1 to "
-                  f"the last log (the log's meter); {views}x{res}^2; peak "
-                  f"{peak:.2f} GiB; launches an iteration "
-                  f"{json.dumps({k: n / iters for k, n in counts.items()})}"
-                  f"; {secs:.1f} s; img_loss {logged[0][1]} -> "
-                  f"{logged[-1][1]}; on {smi}", flush=True)
-            require("WARNING" not in text, f"{label}: a warning: {text}")
-            require(all(math.isfinite(x) for _, x in logged)
-                    and all(bool(torch.isfinite(p).all())
-                            for p in tree_leaves(state.params)),
-                    f"{label}: non-finite loss or parameters {logged}")
-            if want is not None:
-                full = dict.fromkeys(counts, 0)
-                full.update(want)
-                require(counts == full, f"{label}: launches {counts} over "
-                        f"{iters} iterations, expected {full}")
-            return logged, out, text
+        run = _make_runner(smi, tmp, base, views, res, device)
 
         # (a) gso.yaml as shipped, 24 iterations: per chunk one K2b, K3
         # and K5, and K4 twice (forward and recomputation)
@@ -1252,7 +1298,324 @@ def driver_phase(smi, views=120, res=512, device=None):
                                device)
         ranks_phase(smi, tmp, gso, base, f"{out_a}/final", views,
                     device=device)
-        return counts
+        i3d = image_to_3d_phase(smi, tmp, run, views, res, device)
+        return counts, i3d
+
+
+# the six named views of the Wonder3D layout and the azimuths of
+# tests/test_wonder3d.py's orthographic cameras
+W3D_VIEWS = (("front", 0), ("front_right", 45), ("right", 90), ("back", 180),
+             ("left", 270), ("front_left", 315))
+
+
+def write_wonder3d_views(root, verts, faces, res=256, device=None):
+    """A Wonder3D-layout directory of the surface (verts, faces) from
+    numpy: ``mvp/{view}_mvp.npy`` (tests/test_wonder3d.py:35-41's
+    orthographic cameras), ``masked_colors1/rgb_{view}.png`` (a flat
+    colour under the port's antialiased silhouette, rendered with the
+    orthographic z/6) and ``normals/normal_{view}.png`` at res², and the
+    empty ``imgs/`` that image_root names. Returns the mvps (6,4,4)."""
+    import numpy as np
+    from PIL import Image
+    from tssplat_torch.device import resolve_device
+    from tssplat_torch.mesh.surface import triangle_edge_neighbors
+    from tssplat_torch.ops.rasterize import (antialias_silhouette,
+                                             rasterize_silhouette_with_rows)
+    from tssplat_torch.ops.transform import look_at, transform_pos
+
+    dev = resolve_device(device)
+    for d in ("masked_colors1", "normals", "mvp", "imgs"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    mvps = []
+    for _, ang in W3D_VIEWS:
+        a = np.radians(ang)
+        mv = look_at(np.asarray([np.sin(a), 0.0, np.cos(a)]) * 2.5,
+                     [0, 0, 0], [0, 1, 0])
+        mvps.append((np.diag([1.2, -1.2, -0.3, 1.0]) @ mv).astype(np.float32))
+    mvps = np.stack(mvps)
+    faces = np.asarray(faces, np.int64)
+    corners = torch.tensor(np.asarray(verts)[faces.reshape(-1)],
+                           dtype=torch.float32, device=dev)
+    nbrs = torch.as_tensor(triangle_edge_neighbors(faces), device=dev)
+    with torch.no_grad():
+        pos = transform_pos(torch.tensor(mvps, device=dev), corners,
+                            is_ortho=True)
+        ids, z, g6, gaux, _ = rasterize_silhouette_with_rows(pos, nbrs,
+                                                             (res, res))
+        alpha = antialias_silhouette(ids, z, g6, gaux).clamp(0, 1).cpu()
+    for (view, _), m, al in zip(W3D_VIEWS, mvps, alpha.numpy()):
+        np.save(os.path.join(root, "mvp", f"{view}_mvp.npy"), m)
+        rgba = np.stack([al * 0.7, al * 0.5, al * 0.3, al], -1)
+        Image.fromarray((rgba * 255).astype(np.uint8), "RGBA").save(
+            os.path.join(root, "masked_colors1", f"rgb_{view}.png"))
+        nrm = np.stack([al * 0.5 + 0.5] * 3 + [al], -1)
+        Image.fromarray((nrm * 255).astype(np.uint8), "RGBA").save(
+            os.path.join(root, "normals", f"normal_{view}.png"))
+    return mvps
+
+
+def _final_geometry(out, device):
+    """The statics and tet_v of a run's final/final.veg on ``device``."""
+    from tssplat_torch.geometry import TetMeshGeometry
+    from tssplat_torch.mesh.tetmesh import TetMesh
+    geo = TetMeshGeometry(dict(use_smooth_barrier=False), device=device,
+                          tetmesh=TetMesh.from_veg(f"{out}/final/final.veg"))
+    return geo
+
+
+def _path_launches(F, B, res, iters, chunks=1, shaded=False):
+    """The launches of ``iters`` iterations of a silhouette (or, with
+    ``shaded``, a normal or depth) step over B views in ``chunks`` chunks:
+    the visibility kernel the layout rule picks, K3 and K5 once a chunk,
+    K4 once, or twice where chunks are recomputed."""
+    from tssplat_torch.ops.binning import uses_capped_layout
+    if uses_capped_layout(F, 11 if shaded else 14, B // chunks, res, res):
+        vis = "visibility_capped_ids" if shaded else "visibility_capped"
+    else:
+        vis = "visibility"
+    n = iters * chunks
+    return {vis: n, "wsr_table_grad": n,
+            "aa_forward": n * (2 if chunks > 1 else 1), "aa_backward": n}
+
+
+def image_to_3d_phase(smi, tmp, run, views, res, device=None,
+                      w3d_png=256, w3d_res=512):
+    """Phase 14 (see the module docstring), in phase 10's directory
+    ``tmp`` (its dataset, key points and sphere meshes) with driver_phase's
+    main() runner ``run``; the Wonder3D views are w3d_png² PNGs loaded at
+    w3d_res². Returns {run: launch counts} of its main-path runs."""
+    import numpy as np
+    from tssplat_torch.config import dump_config, load_config
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.mesh.tetmesh import TetMesh
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.train import validated_tile_k
+    from tssplat_torch.utils import debug
+    import tssplat_torch.train as tt
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    here = os.path.dirname(os.path.abspath(__file__))
+    i2d = os.path.join(here, "configs", "img_to_3D.yaml")
+    gso = os.path.join(here, "configs", "gso.yaml")
+    F18 = int(TetMesh(np.load(f"{tmp}/cache/final_tet_v.npy"),
+                      np.load(f"{tmp}/cache/final_tet_t.npy"))
+              .surface_fid.shape[0])
+    spheres = [f"geometry.key_points_file_path={tmp}/kp.json",
+               f"geometry.tetwild_cache_folder={tmp}/cache",
+               "geometry.load_precomputed_tetwild_mesh=true"]
+    t_phase = time.perf_counter()
+    out_counts = {}
+
+    # (a) SDS toward phase 10's bank, img_to_3D.yaml's geometry
+    bank_mvp = torch.tensor(np.stack([
+        np.load(f"{tmp}/img/mvp_mtx_{i}.npy") for i in range(4)]),
+        dtype=torch.float32, device=dev)
+    for render in ("alpha", "normal"):
+        label = f"a_sds_{render}"
+        cfg = f"{tmp}/{label}.yaml"
+        with open(i2d) as src, open(cfg, "w") as dst:
+            dst.write(src.read() + (
+                f"\nsds:\n  render: {render}\n  views_per_iter: 4\n"
+                f"  total_num_iter: 12\n  guidance:\n"
+                f"    type: target_image\n    image_root: {tmp}/img\n"))
+        out = f"{tmp}/{label}"
+        tee = _Tee(sys.stdout)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            state, geo = tt.main(["--config", cfg, *spheres,
+                                  f"output_path={out}", "log_every=4"],
+                                 device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = rk.launch_counts()
+        text = "".join(tee.text)
+        loop = float(re.search(r"sds: 12 iterations in ([0-9.]+) s",
+                               text).group(1))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = dict.fromkeys(counts, 0)
+        want.update(_path_launches(F18, 4, res, 12,
+                                   shaded=render == "normal"))
+        print(f"[image-to-3d] {label}: {12 / loop:.3f} it/s (12 iterations "
+              f"of 4 views of {res}², {F18} faces, the SDS loop alone); "
+              f"peak {peak:.2f} GiB; launches an iteration "
+              f"{json.dumps({k: n / 12 for k, n in counts.items()})}; "
+              f"{secs:.1f} s with the bank's load and the export; on {smi}",
+              flush=True)
+        require("WARNING" not in text, f"(a) {render}: a warning: {text}")
+        require(bool(torch.isfinite(state.params).all()),
+                f"(a) {render}: non-finite parameters")
+        require(counts == want, f"(a) {render}: launches {counts}, "
+                f"expected {want}")
+        require(os.path.exists(f"{out}/final/final.veg"),
+                f"(a) {render}: no final/final.veg")
+        out_counts[label] = counts
+        _check_chunk(f"(a) sds {render}, final geometry", geo.statics,
+                     geo.tet_v, bank_mvp, res,
+                     validated_tile_k(geo, {"mvp": bank_mvp}, res),
+                     shaded=render == "normal", tag="image-to-3d")
+        del state, geo
+
+    # (b) Wonder3D views of phase 10's ellipsoid, orthographic, 256² PNGs
+    # resized to the dataset's 512²
+    v, f = icosphere(subdivisions=3)
+    w3d = f"{tmp}/w3d"
+    mvps = write_wonder3d_views(w3d, v * [0.30, 0.24, 0.18], f, w3d_png,
+                                device)
+    logged, out, _ = run(
+        "b_wonder3d", 24, dict(dict.fromkeys(rk.launch_counts(), 0),
+                               **_path_launches(F18, 6, w3d_res, 24)),
+        "dataloader_type=Wonder3DDataLoader",
+        f"data.dataset_config.image_root={w3d}/imgs",
+        f"data.dataset_config.camera_mvp_root={w3d}/mvp",
+        f"data.dataset_config.resolution={w3d_res}", "data.batch_size=6",
+        "renderer.is_orhto=true", "log_every=4", "export_every=100",
+        *spheres[2:], config=i2d, size=f"6x{w3d_res}^2")
+    out_counts["b_wonder3d"] = rk.launch_counts()
+    require(_falls(logged), f"(b): img_loss did not fall {logged}")
+    geo = _final_geometry(out, dev)
+    mvp6 = torch.tensor(mvps, device=dev)
+    _check_chunk("(b) wonder3d, final geometry", geo.statics, geo.tet_v,
+                 mvp6, w3d_res, validated_tile_k(geo, {"mvp": mvp6}, w3d_res,
+                                                 is_ortho=True),
+                 is_ortho=True, tag="image-to-3d")
+
+    # (c) the skeleton geometry: 3 capsules along the ellipsoid's long
+    # axis, gso.yaml with the skeleton's geometry block (its Config has no
+    # sphere-mesher keys)
+    with open(f"{tmp}/skeleton.json", "w") as fh:
+        json.dump({"centers": [[[-0.24, 0, 0], [-0.08, 0, 0]],
+                               [[-0.08, 0, 0], [0.08, 0, 0]],
+                               [[0.08, 0, 0], [0.24, 0, 0]]],
+                   "radii": [[0.08, 0.14], [0.14, 0.14], [0.14, 0.08]]}, fh)
+    skel_cfg = load_config(gso)
+    for key in ("template_surface_sphere_path", "tetwild_exec",
+                "tetwild_cache_folder", "load_precomputed_tetwild_mesh"):
+        skel_cfg["geometry"].pop(key)
+    skel_cfg["geometry_type"] = "TetMeshSkeletonGeometry"
+    skel_cfg["geometry"]["key_points_file_path"] = f"{tmp}/skeleton.json"
+    dump_config(f"{tmp}/skeleton.yaml", skel_cfg)
+    chunks = views // 8
+    logged, out, _ = run(
+        "c_skeleton", 8, None, "total_num_iter=8", "log_every=1",
+        "export_every=100", config=f"{tmp}/skeleton.yaml",
+        common=[f"data.dataset_config.image_root={tmp}/img",
+                f"data.batch_size={views}"])
+    counts = rk.launch_counts()
+    out_counts["c_skeleton"] = counts
+    geo = _final_geometry(out, dev)
+    Fs = int(geo.statics.surface_fid.shape[0])
+    want = dict.fromkeys(counts, 0)
+    want.update(_path_launches(Fs, views, res, 8, chunks=chunks))
+    require(counts == want, f"(c): launches {counts}, expected {want}")
+    require(_falls(logged), f"(c): img_loss did not fall {logged}")
+    sphere_files = [n for n in os.listdir(f"{out}/final") if "_sp" in n]
+    require(len(sphere_files) == 6, f"(c): per-capsule files {sphere_files}")
+    mvp8 = torch.tensor(np.stack([np.load(f"{tmp}/img/mvp_mtx_{i}.npy")
+                                  for i in range(8)]), device=dev)
+    _check_chunk("(c) skeleton, final geometry", geo.statics, geo.tet_v,
+                 mvp8, res, validated_tile_k(geo, {"mvp": mvp8}, res),
+                 tag="image-to-3d")
+    del geo
+
+    # (d) the sanitizers on phase 10's config: the same losses, bit for bit
+    make_step = tt.make_train_step
+    losses = {}
+    for label, knob in (("d_plain", []), ("d_anomaly", ["anomaly=true"]),
+                        ("d_debug_nans", ["debug_nans=true"])):
+        got = losses.setdefault(label, [])
+
+        def spy(*args, got=got, **kw):
+            step = make_step(*args, **kw)
+
+            def recorded(state, batch, it):
+                state, out = step(state, batch, it)
+                got.append(float(out[0]))
+                return state, out
+            return recorded
+
+        tt.make_train_step = spy
+        try:
+            run(label, 2, dict(dict.fromkeys(rk.launch_counts(), 0),
+                               **_path_launches(F18, views, res, 2,
+                                                chunks=chunks)),
+                *knob, "log_every=1", "export_every=100",
+                "geometry.load_precomputed_tetwild_mesh=true", config=gso)
+        finally:
+            tt.make_train_step = make_step
+        out_counts[label] = rk.launch_counts()
+        require(not debug.anomaly_enabled()
+                and not debug.debug_nans_enabled(),
+                f"{label}: a sanitizer left on after the run")
+    require(len(losses["d_plain"]) == 2
+            and losses["d_anomaly"] == losses["d_plain"]
+            and losses["d_debug_nans"] == losses["d_plain"],
+            f"(d): losses differ {losses}")
+    # a NaN planted in K3's input (a cotangent at a foreground pixel) is
+    # trapped at the kernel's output, naming it
+    bins, rr, F = _bench_bins(dev)
+    ids = rk.visibility(bins, rr)[0]
+    ct = torch.zeros((ids.shape[0], 6) + tuple(ids.shape[1:]), device=dev)
+    fg = torch.nonzero(ids[0] > 0)[0]
+    ct[0, 0, fg[0], fg[1]] = float("nan")
+    debug.enable_debug_nans(True)
+    try:
+        rk.wsr_table_grad(ids, ct, F)
+        trapped = None
+    except FloatingPointError as e:
+        trapped = str(e)
+    finally:
+        debug.enable_debug_nans(False)
+    require(trapped is not None and "kernel wsr_table_grad" in trapped,
+            f"(d): the NaN in K3's input was not trapped ({trapped})")
+    print(f"[image-to-3d] (d) anomaly and debug_nans: losses "
+          f"{losses['d_plain']} equal to the run without them; a NaN in "
+          f"K3's input trapped: {trapped!r}; phase 14 "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out_counts
+
+
+def image_to_3d_alone(smi, views=120, res=512, device=None, **kw):
+    """Phase 14 by itself: phase 10's dataset and key points written into
+    a temporary directory, its 18 sphere meshes built into the cache (init
+    path A, on the host), then ``image_to_3d_phase``. Smaller arguments
+    rehearse it (``device="cpu"`` with the cuda synchronisation and memory
+    calls stubbed)."""
+    from tssplat_torch.geometry import TetMeshMultiSphereGeometry
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.tools.synthetic import (write_multisphere_key_points,
+                                               write_synthetic_dataset)
+    with tempfile.TemporaryDirectory(prefix="tss_i3d_") as tmp:
+        v, f = icosphere(subdivisions=3)
+        write_synthetic_dataset(os.path.join(tmp, "img"),
+                                v * [0.30, 0.24, 0.18], f, n_views=views,
+                                resolution=res, device=device)
+        write_multisphere_key_points(os.path.join(tmp, "kp.json"), 18)
+        TetMeshMultiSphereGeometry(dict(
+            key_points_file_path=f"{tmp}/kp.json",
+            tetwild_cache_folder=f"{tmp}/cache",
+            output_path=f"{tmp}/spheres"), device="cpu")
+        base = [f"data.dataset_config.image_root={tmp}/img",
+                f"data.batch_size={views}",
+                f"geometry.key_points_file_path={tmp}/kp.json",
+                f"geometry.tetwild_cache_folder={tmp}/cache"]
+        return image_to_3d_phase(
+            smi, tmp, _make_runner(smi, tmp, base, views, res, device),
+            views, res, device, **kw)
+
+def _bench_bins(dev):
+    """K1's bins, resolution and face count of the bench scene's first 2
+    views at 128² (a small input for the NaN trap's check)."""
+    from tssplat_torch.ops.binning import bin_faces
+    from tssplat_torch.ops.transform import transform_pos
+    from tssplat_torch.tools.synthetic import bench_scene
+    geo, batch = bench_scene(dev, 2, 128)
+    with torch.no_grad():
+        pos = transform_pos(batch["mvp"], geo.tet_v[geo.statics.corner_vid])
+    return (bin_faces(pos, geo.statics.edge_nbrs, (128, 128)), (128, 128),
+            int(geo.statics.edge_nbrs.shape[0]))
 
 
 def _falls(logged):
@@ -1663,25 +2026,52 @@ def pipeline_phase(smi, views=120, res=512, surf_res=50, num_iter=50,
     return per_step[11], per_step[23]
 
 
-def _check_chunk(label, statics, tet_v, mvp, res, tile_k):
+def _check_chunk(label, statics, tet_v, mvp, res, tile_k, shaded=False,
+                 is_ortho=False, tag="pipeline"):
     """The kernels of one view chunk of a driver step, on that step's
     inputs (its statics, params, views and tile capacity, binned as the
     step bins them): K1 or K2b as the layout falls, then K4 and K5 on its
     outputs under a seeded cotangent and K3 on K5's d g6, each against its
     plain version: K2b's ids, z (to the bit), rows and gaux equal; K1's ids
     and gaux equal and its z and rows within 1e-6 (phase 3); K4 and K5
-    equal by value; K3 within 1e-5 of its rows' sums of |ct|."""
+    equal by value; K3 within 1e-5 of its rows' sums of |ct|. With
+    ``shaded`` (the path of fit_normal / fit_depth) the visibility is K2a
+    or K1 without rows (ids equal; K2a's z to the bit, K1's within 1e-6)
+    and K4, K5 and K3 run on the shaded winners' rows (antialias_rows)."""
     from tssplat_torch.ops import raster_kernels as rk
     from tssplat_torch.ops.binning import (bin_faces, bin_faces_capped,
                                            capacity, uses_capped_layout)
+    from tssplat_torch.ops.rasterize import (antialias_rows, rasterize,
+                                             screen_xy_table)
     from tssplat_torch.ops.transform import transform_pos
     from tssplat_torch.tools.wsr_cases import rows_agree
 
     rr = (res, res)
     B, F = mvp.shape[0], int(statics.edge_nbrs.shape[0])
     with torch.no_grad():
-        pos = transform_pos(mvp, tet_v[statics.corner_vid])
-    if uses_capped_layout(F, 14, B, res, res):
+        pos = transform_pos(mvp, tet_v[statics.corner_vid],
+                            is_ortho=is_ortho)
+    if shaded:
+        if uses_capped_layout(F, 11, B, res, res):
+            name = "K2a"
+            bins = bin_faces_capped(pos, None, rr, capacity(tile_k, F, rr))
+            vis, want = rk.visibility_capped_ids(bins, rr), \
+                rk.visibility_capped_ids_plain(bins, rr)
+            ok = torch.equal(vis[1].view(torch.int32),
+                             want[1].view(torch.int32))
+        else:
+            name = "K1 (no rows)"
+            bins = bin_faces(pos, None, rr)
+            vis, want = rk.visibility(bins, rr, emit_g=False), \
+                rk.visibility_plain(bins, rr, emit_g=False)
+            ok = max_err(vis[1:], want[1:]) <= 1e-6
+        require(torch.equal(vis[0], want[0]) and ok,
+                f"{label}: {name} differs from plain")
+        with torch.no_grad():
+            rast, _ = rasterize(pos, rr, vis=(vis[0], bins.n_drop))
+            got = antialias_rows(rast, screen_xy_table(pos, F),
+                                 statics.edge_nbrs)
+    elif uses_capped_layout(F, 14, B, res, res):
         name = "K2b"
         bins = bin_faces_capped(pos, statics.edge_nbrs, rr,
                                 capacity(tile_k, F, rr))
@@ -1706,8 +2096,9 @@ def _check_chunk(label, statics, tet_v, mvp, res, tile_k):
             and torch.equal(dg6, rk.aa_backward_plain(*got, ct)),
             f"{label}: K4 or K5 differs from plain")
     k3_err = rows_agree(rk.wsr_table_grad(got[0], dg6, F), got[0], dg6, F)
-    print(f"[pipeline] {label}: {B} views, {F} faces, {name} "
-          f"(max err {max_err(got, want):.3g}), K4 and K5 equal to plain, "
+    print(f"[{tag}] {label}: {B} views, {F} faces, {name} "
+          f"(max err {max_err(vis if shaded else got, want):.3g}), K4 and "
+          f"K5 equal to plain, "
           f"K3 max err {k3_err:.3g}; {int((got[0] > 0).sum())} foreground "
           f"px", flush=True)
 

@@ -119,7 +119,8 @@ def test_interpolation_merge_and_dump(tmp_path):
 def test_registries():
     """The names the shipped configs use resolve to the port's classes;
     unknown names raise with the known ones; the Wonder3D loader's name
-    raises 'not ported'."""
+    resolves to its loader (tests/test_torch_wonder3d.py runs it)."""
+    from tssplat_torch.data import Wonder3DDataLoader, Wonder3DImgDataset
     from tssplat_torch.materials import ExplicitMaterial
     assert config.load_geometry("TetMeshMultiSphereGeometry") \
         is TetMeshMultiSphereGeometry
@@ -135,8 +136,9 @@ def test_registries():
     assert config.MATERIALS.names() == ["ExplicitMaterial"]
     with pytest.raises(KeyError, match="unknown material.*ExplicitMaterial"):
         config.load_material("None")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        config.load_dataloader("Wonder3DDataLoader")({})
+    loader = config.load_dataloader("Wonder3DDataLoader")
+    assert loader is Wonder3DDataLoader
+    assert loader.dataset_cls is Wonder3DImgDataset
 
 
 def _arrays(n, res=8):

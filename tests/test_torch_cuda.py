@@ -645,3 +645,114 @@ def test_whole_image_viewport_is_the_default(slab_scene):
     assert torch.equal(rk.aa_forward(*inp, viewport=vp), rk.aa_forward(*inp))
     assert torch.equal(rk.aa_backward(*inp, ct, viewport=vp),
                        rk.aa_backward(*inp, ct))
+
+
+@pytest.mark.cuda
+def test_sds_iteration_on_the_card_matches_cpu():
+    """One train_sds iteration (``sds_step``: render, the host SDS
+    gradient, backward, Adam) on the card and on the CPU from the same
+    sphere, cameras and seeded generator: the same camera ids, the image
+    gradient within 1e-4 of its max, tet_v after the step within 1e-4 of
+    the step's largest motion wherever the gradient is above 1e-5 of its
+    max (below it Adam moves rounding noise by ~lr either way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tssplat_torch.geometry import TetMeshGeometry
+    from tssplat_torch.guidance.sds import SDSConfig, TargetImageGuidance
+    from tssplat_torch.optim import adam
+    from tssplat_torch.tools.synthetic import render_alpha_of_mesh
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.train_sds import SDSState, sds_step
+
+    res, n_cam = 128, 8
+    mvp, _, _ = fibonacci_views(n_cam)
+    sv, sf = icosphere(3)
+    bank = render_alpha_of_mesh(sv * np.asarray([0.34, 0.22, 0.22]), sf,
+                                mvp, res).cpu().numpy() * 2.0 - 1.0
+    cfg = SDSConfig(seed=11)
+    guide = TargetImageGuidance(bank, cfg)
+    v, t = tet_sphere(0.05, radius=0.26)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        geo = TetMeshGeometry(dict(use_smooth_barrier=True),
+                              tetmesh=TetMesh(v, t), device=dev)
+        init_fn, update_fn = adam(4e-3)
+        state = SDSState(geo.tet_v.clone(), init_fn(geo.tet_v))
+        rng = np.random.default_rng(cfg.seed)
+        state, g, n_drop = sds_step(
+            state, geo.statics, update_fn, guide, cfg, rng,
+            torch.tensor(mvp, dtype=torch.float32, device=dev), n_cam, 4, 0,
+            res, "alpha")
+        # Adam's first moment after one step is 0.1 x the gradient
+        out[dev] = (g, state.params.cpu().numpy() - v,
+                    state.opt_state.mu.cpu().numpy() / 0.1,
+                    int(n_drop.sum()), rng.bit_generator.state)
+    (g_c, d_c, _, nd_c, s_c), (g_p, d_p, gr_p, nd_p, s_p) = \
+        out["cuda"], out["cpu"]
+    assert nd_c == nd_p == 0 and s_c == s_p
+    np.testing.assert_allclose(g_c, g_p, atol=1e-4 * np.abs(g_p).max())
+    assert np.abs(d_p).max() > 1e-3
+    real = np.abs(gr_p) > 1e-5 * np.abs(gr_p).max()
+    assert real.sum() > 100
+    np.testing.assert_allclose(d_c[real], d_p[real],
+                               atol=1e-4 * np.abs(d_p).max())
+
+
+@pytest.mark.cuda
+def test_nan_trap_fires_on_a_kernel_output():
+    """Under the NaN trap a CUDA kernel (launched through ctypes, which the
+    trap cannot see) checks its own outputs: a NaN cotangent at a
+    foreground pixel reaches K3's table row and raises, naming the
+    kernel; clean input runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tssplat_torch.utils import debug
+
+    geo, batch = bench_scene(torch.device("cuda"), 2, 128)
+    with torch.no_grad():
+        pos = transform_pos(batch["mvp"], geo.tet_v[geo.statics.corner_vid])
+    bins = bin_faces(pos, geo.statics.edge_nbrs, (128, 128))
+    ids = rk.visibility(bins, (128, 128))[0]
+    F = int(geo.statics.edge_nbrs.shape[0])
+    fg = torch.nonzero(ids[0] > 0)[0]
+    ct = torch.zeros((2, 6, 128, 128), device="cuda")
+    ct[0, :, fg[0], fg[1]] = 1.0
+    bad = ct.clone()
+    bad[0, 0, fg[0], fg[1]] = float("nan")
+    debug.enable_debug_nans(True)
+    try:
+        before = rk.wsr_table_grad.launches
+        rk.wsr_table_grad(ids, ct, F)
+        with pytest.raises(FloatingPointError,
+                           match="encountered in kernel wsr_table_grad"):
+            rk.wsr_table_grad(ids, bad, F)
+        assert rk.wsr_table_grad.launches == before + 2
+    finally:
+        debug.enable_debug_nans(False)
+
+
+@pytest.mark.cuda
+def test_native_topology_matches_numpy_on_the_card_machine():
+    """The host topology library, built on the card's machine, agrees with
+    the numpy paths on tet_sphere(0.02): the same boundary surface, tet
+    neighbour sets and degrees, and (a manifold surface) edge table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tssplat_torch.mesh import surface
+
+    _, t = tet_sphere(0.02, radius=0.3)
+    for a, b in zip(surface.get_surface_vf(t),
+                    surface.get_surface_vf(t, use_native=False)):
+        np.testing.assert_array_equal(a, b)
+    n, d = surface.tet_face_neighbors(t)
+    n_np, d_np = surface.tet_face_neighbors(t, use_native=False)
+    np.testing.assert_array_equal(d, d_np)
+    np.testing.assert_array_equal(np.sort(n, axis=1), np.sort(n_np, axis=1))
+    _, faces = surface.get_surface_vf(t)
+    np.testing.assert_array_equal(
+        surface.triangle_edge_neighbors(faces),
+        surface.triangle_edge_neighbors(faces, use_native=False))

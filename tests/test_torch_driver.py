@@ -1,7 +1,7 @@
 """The port's driver (tssplat_torch.train: train, main, the view-chunked
 step) against the JAX package's train() on the same config and the same
 dataset on the CPU, and the driver's own contracts: chunking, resume,
-SIGTERM, the knobs that are not ported."""
+SIGTERM, the knobs (the sanitizers and the SDS dispatch among them)."""
 
 import copy
 import json
@@ -325,23 +325,53 @@ def test_sigterm_checkpoints_and_resumes(two_views, capsys):
     assert f"iter={saved:4d}" not in out
 
 
-@pytest.mark.parametrize("knob, item", [
-    (dict(debug_nans=True), 7),
-    (dict(anomaly=True), 7),
-    (dict(sds=dict(prompt="a dog")), 8),
+@pytest.mark.parametrize("knob", [
+    dict(debug_nans=True),
+    dict(anomaly=True),
+    dict(sds=dict(prompt="a dog")),
 ], ids=["debug_nans", "anomaly", "sds"])
-def test_unported_knobs_raise(root, knob, item):
-    """Each knob of a part not yet ported raises NotImplementedError naming
-    its ROADMAP item, before anything is built."""
-    cfg = _cfg(root, "knobs", 2)
-    if "data" in knob:
-        cfg["data"].update(knob["data"])
-    else:
-        cfg.update(knob)
-    with pytest.raises(NotImplementedError,
-                       match=rf"not ported \(ROADMAP queue 1 item {item}\)"):
-        torch_train.train(ConfigDict(cfg), device="cpu")
-    assert not os.path.exists(root / "knobs")
+def test_unported_knobs_raise(root, knob, monkeypatch):
+    """The knobs that raised "not ported" until their parts were ported now
+    run: debug_nans (the NaN trap) and anomaly give the losses and
+    parameters of the run without them, bit for bit, and are off again
+    after the run; a config with an sds block makes main() run train_sds
+    (tests/test_torch_sds.py runs it)."""
+    from tssplat_torch.config import dump_config
+    from tssplat_torch.utils import debug
+    import tssplat_torch.train_sds as sds_driver
+    if "sds" in knob:
+        seen = []
+        monkeypatch.setattr(sds_driver, "train_sds",
+                            lambda cfg, device=None: seen.append(
+                                (dict(cfg["sds"]), device)))
+        path = str(root / "sds_knob.yaml")
+        dump_config(path, dict(_cfg(root, "knobs", 2), **knob))
+        torch_train.main(["--config", path], device="cpu")
+        assert seen == [({"prompt": "a dog"}, "cpu")]
+        assert not os.path.exists(root / "knobs")
+        return
+    make = torch_train.make_train_step
+    runs = []
+    for tag, over in (("plain", {}), ("knob", knob)):
+        losses = []
+
+        def spy(*args, losses=losses, **kw):
+            step = make(*args, **kw)
+
+            def recorded(state, batch, it):
+                state, out = step(state, batch, it)
+                losses.append(float(out[0]))
+                return state, out
+            return recorded
+
+        monkeypatch.setattr(torch_train, "make_train_step", spy)
+        st, _ = torch_train.train(ConfigDict(_cfg(root, f"knob_{tag}", 2,
+                                                  **over)), device="cpu")
+        runs.append((losses, st))
+    (l0, s0), (l1, s1) = runs
+    assert len(l0) == 2 and l1 == l0
+    assert torch.equal(s1.params, s0.params)
+    assert not debug.anomaly_enabled() and not debug.debug_nans_enabled()
 
 
 @pytest.mark.parametrize("knob", [
@@ -353,7 +383,7 @@ def test_texture_knobs_pass_the_knob_check(root, knob):
     (tests/test_torch_texture_driver.py runs them)."""
     cfg = _cfg(root, "knobs", 2)
     cfg.update(knob)
-    torch_train._refuse_unported(ConfigDict(cfg))
+    torch_train._check_stage(ConfigDict(cfg))
 
 
 def test_unknown_stage_raises(root):
@@ -369,7 +399,7 @@ def test_gso_defaults_pass_the_knob_check():
     """configs/gso.yaml as shipped (material_type None, data_parallel
     unset, world_size 1) sets no knob that raises."""
     cfg = jax_load_config(os.path.join(REPO, "configs", "gso.yaml"))
-    torch_train._refuse_unported(ConfigDict(cfg))
+    torch_train._check_stage(ConfigDict(cfg))
 
 
 def test_train_and_main_refuse_cpu_fallback(root, monkeypatch):

@@ -14,6 +14,7 @@ thing from the same inputs:
   optax_adam_state   AdamState (count, mu, nu) of ``optax.adam``
   train_state        TrainState (params, either optimizer's state, best
                      loss / iteration / params) of either stage
+  sds_state          SDSState (tet_v, optax.adam's state) of the SDS driver
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from .ops.energy import EnergyOps, energy_ops_from_arrays
 from .optim.adam import AdamState
 from .optim.adam_uniform import AdamUniformState
 from .train import TrainState
+from .train_sds import SDSState
 from .utils.tree import tree_map
 
 
@@ -117,3 +119,11 @@ def train_state(state, device: DeviceLike = None) -> TrainState:
                       best_loss=_f32(state.best_loss, dev),
                       best_iter=_i32(state.best_iter, dev),
                       best_params=_tree_f32(state.best_params, dev))
+
+
+def sds_state(state, device: DeviceLike = None) -> SDSState:
+    """A JAX ``train_sds.SDSState``: tet_v and the state of
+    ``optax.adam(lr)``."""
+    dev = resolve_device(device)
+    return SDSState(params=tet_v(state.params, dev),
+                    opt_state=optax_adam_state(state.opt_state, dev))

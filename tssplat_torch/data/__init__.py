@@ -1,7 +1,8 @@
-from .datasets import ArrayDataset, BlenderImgDataset, MitsubaImgDataset
+from .datasets import (ArrayDataset, BlenderImgDataset, MitsubaImgDataset,
+                       Wonder3DImgDataset)
 from .loader import (ArrayDataLoader, BlenderImgDataLoader,
-                     MitsubaImgDataLoader, ViewDataLoader)
+                     MitsubaImgDataLoader, ViewDataLoader, Wonder3DDataLoader)
 
 __all__ = ["ArrayDataset", "BlenderImgDataset", "MitsubaImgDataset",
-           "ArrayDataLoader", "BlenderImgDataLoader", "MitsubaImgDataLoader",
-           "ViewDataLoader"]
+           "Wonder3DImgDataset", "ArrayDataLoader", "BlenderImgDataLoader",
+           "MitsubaImgDataLoader", "ViewDataLoader", "Wonder3DDataLoader"]

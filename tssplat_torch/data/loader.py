@@ -28,7 +28,8 @@ import torch
 from ..config import DATALOADERS, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..utils.env import get_rank
-from .datasets import ArrayDataset, BlenderImgDataset, MitsubaImgDataset
+from .datasets import (ArrayDataset, BlenderImgDataset, MitsubaImgDataset,
+                       Wonder3DImgDataset)
 
 
 class ViewDataLoader:
@@ -155,13 +156,7 @@ class BlenderImgDataLoader(ViewDataLoader):
 
 @DATALOADERS.register("Wonder3DDataLoader")
 class Wonder3DDataLoader(ViewDataLoader):
-    """Registered so that its name gives a clear error: the Wonder3D layout
-    needs OpenCV's bicubic resize and is not ported."""
-
-    def __init__(self, cfg=None, dataset=None, device: DeviceLike = None):
-        raise NotImplementedError(
-            "Wonder3DDataLoader (Wonder3DImgDataset) is not ported "
-            "(ROADMAP queue 1 item 1)")
+    dataset_cls = Wonder3DImgDataset
 
 
 @DATALOADERS.register("ArrayDataLoader")

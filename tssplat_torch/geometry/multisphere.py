@@ -19,6 +19,10 @@ JAX package is not ported: configuring an existing ``tetwild_exec`` raises.
 JSONs (reference :373-382). ``remesh`` re-derives the per-sphere partition
 on the new tets (``repartition_spheres``) and keeps the 1/num_spheres
 smoothness scale.
+
+The skeleton geometry (``TetMeshSkeletonGeometry``, also registered as
+``TetMeshFish``) builds one tet capsule per skeleton edge and shares that
+bookkeeping.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 
 from ..config import GEOMETRIES, parse_structured
 from ..device import DeviceLike, resolve_device
-from ..mesh.spheres import tet_sphere
+from ..mesh.spheres import tet_capsule, tet_sphere
 from ..mesh.tetmesh import TetMesh
 from .tet_geometry import TetMeshGeometry
 
@@ -111,8 +115,49 @@ def _write_json(path: str, obj) -> None:
         json.dump(obj, f)
 
 
+class _SphereBookkeepingMixin:
+    """The per-sphere partition of the multi-sphere and skeleton
+    geometries (``_SphereBookkeepingMixin``, multisphere.py:109-150):
+    ``num_spheres``, the partition re-derived after a remesh, and the
+    per-sphere exports. The class sets ``all_spheres_vtx_idx`` and
+    ``all_spheres_elem_idx`` before ``setup``."""
+
+    @property
+    def num_spheres(self) -> int:
+        return len(self.all_spheres_vtx_idx)
+
+    def remesh(self, *args, **kwargs) -> None:
+        """``TetMeshGeometry.remesh``, then the partition re-derived on the
+        new tets from the deformed vertices' spheres. The 1/num_spheres
+        scale is an init-time constant of the objective (reference
+        geometry/tetmesh_geometry.py:242-243) and is kept, so the loss
+        stays continuous where spheres merged."""
+        old_vtx = np.asarray(self.tetmesh.vtx, np.float64)
+        old_sid = _vertex_sphere_ids(self.all_spheres_vtx_idx,
+                                     self.tetmesh.num_vertices)
+        super().remesh(*args, **kwargs)
+        self.all_spheres_vtx_idx, self.all_spheres_elem_idx = \
+            repartition_spheres(old_vtx, old_sid, self.tetmesh.vtx,
+                                self.tetmesh.elem)
+
+    def export(self, path: str, filename: str, **kwargs) -> None:
+        """The tet mesh (``kwargs`` go to ``TetMesh.save``), plus per sphere
+        its vertices and local elements as npy, and the index JSONs that
+        init path C reads."""
+        tet_v = super().export(path, filename, **kwargs)
+        for i, vid in enumerate(self.all_spheres_vtx_idx):
+            np.save(os.path.join(path, f"{filename}_sp{i}_vtx.npy"),
+                    tet_v[np.asarray(vid, np.int64), :])
+            np.save(os.path.join(path, f"{filename}_sp{i}_elem.npy"),
+                    np.asarray(self.all_spheres_elem_idx[i]))
+        _write_json(os.path.join(path, "spheres_vtx_idx.json"),
+                    [list(map(int, v)) for v in self.all_spheres_vtx_idx])
+        _write_json(os.path.join(path, "spheres_elem_idx.json"),
+                    self.all_spheres_elem_idx)
+
+
 @GEOMETRIES.register("TetMeshMultiSphereGeometry")
-class TetMeshMultiSphereGeometry(TetMeshGeometry):
+class TetMeshMultiSphereGeometry(_SphereBookkeepingMixin, TetMeshGeometry):
     """Disjoint union of tet spheres from key points (paths A, B, C above),
     on ``device`` (``cuda`` unless the caller asks for the CPU)."""
 
@@ -185,35 +230,38 @@ class TetMeshMultiSphereGeometry(TetMeshGeometry):
             self.tetmesh.save("debug", "debug_multi_spheres",
                               save_surface_mesh=True)
 
-    @property
-    def num_spheres(self) -> int:
-        return len(self.all_spheres_vtx_idx)
 
-    def remesh(self, *args, **kwargs) -> None:
-        """``TetMeshGeometry.remesh``, then the partition re-derived on the
-        new tets from the deformed vertices' spheres (multisphere.py:
-        117-131). The 1/num_spheres scale is an init-time constant of the
-        objective (reference geometry/tetmesh_geometry.py:242-243) and is
-        kept, so the loss stays continuous where spheres merged."""
-        old_vtx = np.asarray(self.tetmesh.vtx, np.float64)
-        old_sid = _vertex_sphere_ids(self.all_spheres_vtx_idx,
-                                     self.tetmesh.num_vertices)
-        super().remesh(*args, **kwargs)
-        self.all_spheres_vtx_idx, self.all_spheres_elem_idx = \
-            repartition_spheres(old_vtx, old_sid, self.tetmesh.vtx,
-                                self.tetmesh.elem)
+@GEOMETRIES.register("TetMeshFish")
+@GEOMETRIES.register("TetMeshSkeletonGeometry")
+class TetMeshSkeletonGeometry(_SphereBookkeepingMixin, TetMeshGeometry):
+    """Skeleton-edge sweep geometry (``TetMeshSkeletonGeometry``,
+    multisphere.py:276; reference geometry/tetmesh_fish.py:38-132, which
+    sweeps spheres along the edges with pypgo and TetWild): one tet capsule
+    per skeleton edge, concatenated, each edge a "sphere" of the partition.
+    The key-point JSON holds ``centers`` [[p0, p1], ...] and ``radii``
+    [[r0, r1], ...], one pair per edge."""
 
-    def export(self, path: str, filename: str, **kwargs) -> None:
-        """The tet mesh (``kwargs`` go to ``TetMesh.save``), plus per sphere
-        its vertices and local elements as npy, and the index JSONs that
-        init path C reads."""
-        tet_v = super().export(path, filename, **kwargs)
-        for i, vid in enumerate(self.all_spheres_vtx_idx):
-            np.save(os.path.join(path, f"{filename}_sp{i}_vtx.npy"),
-                    tet_v[np.asarray(vid, np.int64), :])
-            np.save(os.path.join(path, f"{filename}_sp{i}_elem.npy"),
-                    np.asarray(self.all_spheres_elem_idx[i]))
-        _write_json(os.path.join(path, "spheres_vtx_idx.json"),
-                    [list(map(int, v)) for v in self.all_spheres_vtx_idx])
-        _write_json(os.path.join(path, "spheres_elem_idx.json"),
-                    self.all_spheres_elem_idx)
+    @dataclass
+    class Config(TetMeshGeometry.Config):
+        key_points_file_path: str = ""
+        output_path: str = "."
+        debug_mode: bool = False
+
+    def __init__(self, cfg=None, device: DeviceLike = None):
+        self.cfg = parse_structured(self.Config, cfg)
+        self.device = resolve_device(device)
+        c = self.cfg
+        skel = _read_json(c.key_points_file_path)
+        centers = np.asarray(skel["centers"], np.float64)
+        radii = np.asarray(skel["radii"], np.float64)
+        edge_len = target_edge_length(float(radii.min()))
+        parts = [tet_capsule(edge_len, p0=centers[i, 0], p1=centers[i, 1],
+                             r0=float(radii[i, 0]), r1=float(radii[i, 1]))
+                 for i in range(centers.shape[0])]
+        v, t, self.all_spheres_vtx_idx, self.all_spheres_elem_idx = \
+            _concat_spheres(parts)
+        self.tetmesh = TetMesh(v, t)
+        self.setup(smooth_scale=1.0 / max(len(self.all_spheres_vtx_idx), 1))
+        if c.debug_mode:
+            self.tetmesh.save("debug", "debug_skeleton",
+                              save_surface_mesh=True)

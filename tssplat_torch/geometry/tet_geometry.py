@@ -19,6 +19,7 @@ import torch
 from ..config import GEOMETRIES, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..mesh.tetmesh import TetMesh
+from ..utils import debug
 from ..ops.energy import (EnergyOps, build_energy_ops, smooth_barrier_energy,
                           energy_coeff_schedule, barrier_order)
 
@@ -90,7 +91,53 @@ def compute_vertex_normals(v_pos: torch.Tensor,
     up = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
                       device=v_pos.device)
     v_nrm = torch.where(sq > 1e-20, v_nrm, up)
-    return v_nrm / torch.linalg.norm(v_nrm, dim=-1, keepdim=True)
+    v_nrm = v_nrm / torch.linalg.norm(v_nrm, dim=-1, keepdim=True)
+    debug.check_finite(v_nrm, "vertex_normals")   # ref :63-64 anomaly gate
+    return v_nrm
+
+
+def compute_vertex_tangents(v_pos: torch.Tensor, t_pos_idx: torch.Tensor,
+                            v_tex: torch.Tensor, t_tex_idx: torch.Tensor,
+                            v_nrm: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Per-vertex tangents from the UVs (``compute_vertex_tangents``,
+    tet_geometry.py:99; reference geometry/tetmesh_geometry.py:68-115):
+    each triangle's tangent, its UV determinant clamped away from 0 by
+    1e-6 with its sign kept, averaged into its vertices, normalized and
+    orthonormalized against the vertex normals."""
+    if v_nrm is None:
+        v_nrm = compute_vertex_normals(v_pos, t_pos_idx)
+    pos = [v_pos[t_pos_idx[:, i]] for i in range(3)]
+    tex = [v_tex[t_tex_idx[:, i]] for i in range(3)]
+
+    uve1 = tex[1] - tex[0]
+    uve2 = tex[2] - tex[0]
+    pe1 = pos[1] - pos[0]
+    pe2 = pos[2] - pos[0]
+    nom = pe1 * uve2[..., 1:2] - pe2 * uve1[..., 1:2]
+    denom = uve1[..., 0:1] * uve2[..., 1:2] - uve1[..., 1:2] * uve2[..., 0:1]
+    denom = torch.where(denom > 0.0, torch.clamp_min(denom, 1e-6),
+                        torch.clamp_max(denom, -1e-6))
+    tang = nom / denom
+
+    tangents = torch.zeros_like(v_pos)
+    tansum = torch.zeros_like(v_pos)
+    ones = torch.ones_like(tang)
+    for i in range(3):
+        idx = t_pos_idx[:, i]
+        tangents = tangents + torch.zeros_like(v_pos).index_add(0, idx, tang)
+        tansum = tansum + torch.zeros_like(v_pos).index_add(0, idx, ones)
+    tangents = tangents / torch.clamp_min(tansum, 1.0)
+
+    def normalize(x):
+        return x / torch.clamp_min(torch.linalg.norm(x, dim=-1, keepdim=True),
+                                   1e-20)
+
+    tangents = normalize(tangents)
+    tangents = normalize(tangents - torch.sum(tangents * v_nrm, -1,
+                                              keepdim=True) * v_nrm)
+    debug.check_finite(tangents, "vertex_tangents")  # ref :112-113 gate
+    return tangents
 
 
 def statics_to(statics: GeometryStatics, device: DeviceLike

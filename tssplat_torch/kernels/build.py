@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -75,35 +75,45 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
+def compile_all(jobs: Dict[str, Tuple[List[str], Path]]) -> Dict[str, str]:
+    """Run the compile commands ``{name: (command, output)}`` all at once;
+    each command's ``-o`` target is a temporary beside its output, renamed
+    into place when the command succeeds. Returns ``{name: its log}``;
+    raises with every failed command's log."""
+    procs = {}
+    for n, (cmd, out) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        try:
+            proc = subprocess.Popen([*cmd, "-o", str(tmp)],
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            raise RuntimeError(f"build of {n} failed: {e}") from e
+        procs[n] = (proc, tmp, out)
+    reports, failed = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n}: {proc.args[0]} exited {proc.returncode}"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, out)         # atomic: a concurrent loader sees all
+        reports[n] = log
+    if failed:
+        raise RuntimeError("build failed:\n" + "\n".join(failed))
+    return reports
+
+
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every missing kernel library, one ``nvcc`` per source, all
     started together. Returns ``{name: ptxas report}`` for what was built
     (resource usage per kernel, from ``-Xptxas -v``); raises on failure."""
     names = list(SOURCES if names is None else names)
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    for n in todo:
-        out = library_path(n)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp, out)
-    reports, failed = {}, []
-    for n, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)         # atomic: a concurrent loader sees all
-        reports[n] = log
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return reports
+    return compile_all({
+        n: ([nvcc, *NVCC_FLAGS, str(CSRC / SOURCES[n])], library_path(n))
+        for n in names if not library_path(n).exists()})
 
 
 @functools.cache

@@ -323,3 +323,33 @@ def tet_sphere(target_edge_length: float, radius: float = 1.0,
     del rng
     return tet_ball_union(target_edge_length, [center], [radius],
                           min_surface_points=min_surface_points)
+
+
+def tet_capsule(target_edge_length: float, p0, p1, r0: float, r1: float
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Tetrahedralized cone-sphere (a sphere swept along a straight edge
+    with linearly varying radius): the skeleton-edge primitive of the
+    skeleton geometry (reference: pypgo.create_tetsphere_edge_surface +
+    TetWild, geometry/tetmesh_fish.py:73-87). The body is convex, so the
+    ball-union Delaunay tetrahedralizer applies with stations every half
+    edge length."""
+    p0 = np.asarray(p0, np.float64)
+    p1 = np.asarray(p1, np.float64)
+    h = float(target_edge_length)
+    length = float(np.linalg.norm(p1 - p0))
+    n_st = max(2, int(math.ceil(length / max(0.5 * h, 1e-9))) + 1)
+    a = np.linspace(0.0, 1.0, n_st)[:, None]
+    centers = (1 - a) * p0 + a * p1
+    radii = (1 - a[:, 0]) * r0 + a[:, 0] * r1
+    return tet_ball_union(h, centers, radii)
+
+
+def load_template_sphere(path: Optional[str] = None,
+                         subdivisions: int = 3
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Template surface sphere: from an OBJ file if given (the reference
+    uses mesh_data/s.1.obj, config/gso.yaml:13), else an icosphere."""
+    if path:
+        from .io import load_obj
+        return load_obj(path)
+    return icosphere(subdivisions=subdivisions)

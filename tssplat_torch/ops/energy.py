@@ -191,6 +191,85 @@ def smooth_barrier_energy(x: torch.Tensor, ops: EnergyOps, c1: float,
     return _SmoothBarrier.apply(x, float(c1), float(c2), int(order), ops)
 
 
+def deformation_gradients(x: torch.Tensor, tets: torch.Tensor,
+                          dX_inv: torch.Tensor) -> torch.Tensor:
+    """Per-tet deformation gradient F = dx @ dX_inv (T,3,3), dx's columns
+    the current edge vectors [v1-v0, v2-v0, v3-v0] (``deformation_
+    gradients``, energy.py:153; reference geometry/mesh_utils.py:51-53),
+    as a broadcast multiply and sum."""
+    v = x[tets]                                           # (T,4,3)
+    dx = torch.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                      v[:, 3] - v[:, 0]], dim=2)          # columns
+    return torch.sum(dx[:, :, :, None] * dX_inv[:, None, :, :], dim=2)
+
+
+def _det3(F: torch.Tensor) -> torch.Tensor:
+    """Closed-form 3x3 determinant (the expansion of ``_det3``,
+    energy.py:168)."""
+    return (F[..., 0, 0] * (F[..., 1, 1] * F[..., 2, 2]
+                            - F[..., 1, 2] * F[..., 2, 1])
+            - F[..., 0, 1] * (F[..., 1, 0] * F[..., 2, 2]
+                              - F[..., 1, 2] * F[..., 2, 0])
+            + F[..., 0, 2] * (F[..., 1, 0] * F[..., 2, 1]
+                              - F[..., 1, 1] * F[..., 2, 0]))
+
+
+def laplacian_F(F: torch.Tensor, ops: EnergyOps) -> torch.Tensor:
+    """The tet-graph Laplacian applied blockwise to the F field, (LF)_t =
+    deg_t F_t - sum of the neighbours' F, row-scaled by ops.row_w where a
+    weighting is set (``laplacian_F``, energy.py:191)."""
+    LF = ops.degree[:, None, None] * F
+    for k in range(4):
+        LF = LF - ops.nbr_mask[:, k, None, None] * F[ops.nbrs[:, k]]
+    if ops.row_w is not None:
+        LF = ops.row_w[:, None, None] * LF
+    return LF
+
+
+def smooth_barrier_energy_ref(x: torch.Tensor, ops: EnergyOps, c1, c2,
+                              order: int) -> torch.Tensor:
+    """The energy in plain PyTorch (``smooth_barrier_energy_ref``,
+    energy.py:467): the same math as ``smooth_barrier_energy`` with
+    autograd's own backward, reverse or forward mode (``torch.func.jvp``);
+    the oracle of the closed-form gradient."""
+    F = deformation_gradients(x, ops.tets, ops.dX_inv)
+    LF = laplacian_F(F, ops)
+    e_smooth = 0.5 * torch.sum(LF * LF)
+    neg = torch.clamp_min(-_det3(F), 0.0)
+    p2 = neg * neg
+    e_barrier = torch.sum(p2 * p2 if int(order) == 4 else p2)
+    return c1 * e_smooth + c2 * e_barrier
+
+
+def compute_G_matrix(verts, tets) -> torch.Tensor:
+    """Dense per-tet deformation-gradient operator G (T,9,12) f32:
+    flat(F_t) = G_t @ x_t with x_t the tet's 12 stacked vertex coordinates
+    (``compute_G_matrix``, energy.py:485; reference geometry/mesh_utils.py:
+    38-69, the dense form of the reference's sparse G), from the rest
+    edge matrices' inverses taken in float64. A test oracle; the
+    energy uses the gather form (deformation_gradients). On the device of
+    ``verts`` where it is a tensor, else the CPU."""
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    tets = torch.as_tensor(tets, dtype=torch.int64, device=verts.device)
+    v = verts[tets]                                       # (T,4,3)
+    dX = torch.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 0],
+                      v[:, 3] - v[:, 0]], dim=2)
+    # the inverse in f64, rounded once: within 3e-7 of JAX's f32 LU
+    # inverse where two f32 algorithms part by 1e-6
+    dX_inv = torch.linalg.inv(dX.double()).float()        # (T,3,3)
+    # F_ij = sum_k dx_ik dXinv_kj with edge_k = v_{k+1} - v_0
+    G = torch.zeros((tets.shape[0], 9, 12), dtype=torch.float32,
+                    device=verts.device)
+    for i in range(3):          # row of F
+        for j in range(3):      # column of F
+            r = i * 3 + j
+            for k in range(3):  # edge
+                w = dX_inv[:, k, j]
+                G[:, r, 3 * (k + 1) + i] += w
+                G[:, r, i] += -w
+    return G
+
+
 def energy_coeff_schedule(it: int, smooth_coeff: float, barrier_coeff: float):
     """Coefficient ramp x1 -> x16 over ~1200 iterations (reference
     energies/smooth_barrier.py:47-58), evaluated in float32 like the JAX

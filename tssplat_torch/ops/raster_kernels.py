@@ -24,7 +24,9 @@ Each wrapper takes the plain version for tensors on the CPU, and launches
 its kernel for CUDA tensors (or raises: there is no fallback). It checks
 device, dtype, shape and contiguity, allocates the outputs, launches on
 PyTorch's current stream, raises if ``cudaGetLastError`` is not 0, and
-adds one to its ``launches`` count. The plain versions repeat the kernels'
+adds one to its ``launches`` count; under the NaN trap
+(``utils/debug.py``), which sees no ctypes launch, it checks its own
+floating outputs. The plain versions repeat the kernels'
 arithmetic in the same order, so on the card the two agree to the last bit
 except where K3's atomics reorder sums. K2a/K2b have two: the walk over
 each tile's candidates, which defines the result and is what a CPU tensor
@@ -41,6 +43,7 @@ from typing import Tuple
 import torch
 
 from ..kernels import build
+from ..utils.debug import check_kernel_outputs
 from .binning import (CAP_TILE_H, CAP_TILE_W, CappedBins, FaceBins, TILE_H,
                       TILE_W)
 from .screen import ndc_center, pixel_centers
@@ -124,6 +127,7 @@ def visibility(bins: FaceBins, resolution: Tuple[int, int],
             bins.ntx, int(emit_g), row0, full_h, _ptr(ids), _ptr(z),
             _ptr(g6) if emit_g else None, _ptr(gaux) if emit_g else None)
     visibility.launches += 1
+    check_kernel_outputs("visibility", z, g6, gaux)
     return (ids, z, g6, gaux) if emit_g else (ids, z)
 
 
@@ -260,6 +264,7 @@ def visibility_capped(bins: CappedBins, resolution: Tuple[int, int]):
             _ptr(bins.cand), B, F, H, W, k, row0, full_h, _ptr(ids), _ptr(z),
             _ptr(g6), _ptr(gaux))
     visibility_capped.launches += 1
+    check_kernel_outputs("visibility_capped", z, g6, gaux)
     return ids, z, g6, gaux
 
 
@@ -276,6 +281,7 @@ def visibility_capped_ids(bins: CappedBins, resolution: Tuple[int, int]):
             _ptr(bins.cand), B, F, H, W, k, row0, full_h, _ptr(ids),
             _ptr(z))
     visibility_capped_ids.launches += 1
+    check_kernel_outputs("visibility_capped_ids", z)
     return ids, z
 
 
@@ -446,6 +452,7 @@ def wsr_table_grad(ids: torch.Tensor, ct6: torch.Tensor, F: int
     _launch("tss_wsr_grad_launch", _ptr(ids), _ptr(ct6), B, H, W, F,
             _ptr(out))
     wsr_table_grad.launches += 1
+    check_kernel_outputs("wsr_table_grad", out)
     return out
 
 
@@ -613,6 +620,7 @@ def aa_forward(ids, z, g6, gaux, viewport=None) -> torch.Tensor:
     _launch("tss_aa_fwd_launch", _ptr(ids), _ptr(z), _ptr(g6), _ptr(gaux),
             B, H, W, row0, full_h, _ptr(out))
     aa_forward.launches += 1
+    check_kernel_outputs("aa_forward", out)
     return out
 
 
@@ -641,6 +649,7 @@ def aa_backward(ids, z, g6, gaux, ct, viewport=None) -> torch.Tensor:
     _launch("tss_aa_bwd_launch", _ptr(ids), _ptr(z), _ptr(g6), _ptr(gaux),
             _ptr(ct), B, H, W, row0, full_h, _ptr(dg6))
     aa_backward.launches += 1
+    check_kernel_outputs("aa_backward", dg6)
     return dg6
 
 

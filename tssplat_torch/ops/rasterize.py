@@ -11,6 +11,8 @@
   visibility_ids(pos_clip, (H, W), k) -> ids+1, n_drop, without gradient
   rasterize(pos_clip, (H, W), k, vis) -> rast (B,H,W,4) = (u, v, z/w,
       id+1), n_drop (B,); perspective-correct and differentiable in u, v, z
+  rasterize_silhouette(pos_clip, (H, W), k) -> rasterize's rast with
+      u = v = 0 and no gradient, n_drop
   interpolate(attr, rast) -> (B,H,W,C) barycentric attributes
   antialias(rast, pos_clip, edge_nbrs) -> (B,H,W) coverage antialias of
       the ``rasterize`` path
@@ -286,6 +288,22 @@ def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
     ids, n_drop = vis if vis is not None else \
         visibility_ids(pos_clip, resolution, k, viewport)
     return _shade_rast(pos_clip, ids, resolution, viewport), n_drop
+
+
+def rasterize_silhouette(pos_clip: torch.Tensor,
+                         resolution: Tuple[int, int],
+                         k: Optional[int] = None, vis=None, viewport=None):
+    """Silhouette-only rasterization (``rasterize_silhouette``,
+    rasterize.py:760): ``rasterize``'s (B,H,W,4) with u = v = 0 and no
+    gradient in any channel (z and id+1 kept), and n_drop (B,). The
+    silhouette loss takes its gradient from the antialias pass alone
+    (nvdiffrast's grad_db=False, reference renderers/mesh_rasterizer.py:
+    103-108)."""
+    with torch.no_grad():
+        rast, n_drop = rasterize(pos_clip.detach(), resolution, k, vis,
+                                 viewport)
+    rast[..., 0:2] = 0.0
+    return rast, n_drop
 
 
 def interpolate(attr: torch.Tensor, rast: torch.Tensor) -> torch.Tensor:

@@ -1,3 +1,3 @@
-from .pipeline import RenderOutput, render_views
+from .pipeline import MeshRasterizer, RenderOutput, render_views
 
-__all__ = ["RenderOutput", "render_views"]
+__all__ = ["MeshRasterizer", "RenderOutput", "render_views"]

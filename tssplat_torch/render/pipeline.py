@@ -19,13 +19,16 @@ corner gather -> clip transform -> then either
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..config import parse_structured
 from ..geometry.tet_geometry import (GeometryStatics, compute_vertex_normals,
-                                     geometry_forward)
+                                     geometry_forward,
+                                     permute_surface_vertices)
 from ..ops.rasterize import (antialias, antialias_color,
                              antialias_silhouette, interpolate, rasterize,
                              rasterize_silhouette_with_rows,
@@ -161,3 +164,64 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
                                   keepdim=True)
     return RenderOutput(shaded=shaded, geo_regularization=fwd.energy,
                         normal=normal, depth=depth, n_drop=n_drop)
+
+
+class MeshRasterizer:
+    """Object wrapper with the reference's constructor and forward shape
+    (``MeshRasterizer``, pipeline.py:245; reference renderers/
+    mesh_rasterizer.py:26-163) around ``render_views``. ``context_type``
+    is accepted for config compatibility and ignored."""
+
+    @dataclass
+    class Config:
+        context_type: str = "cuda"
+        is_orhto: bool = False          # sic — reference config key spelling
+
+    def __init__(self, geometry, materials=None, cfg=None):
+        self.cfg = parse_structured(self.Config, cfg)
+        self.geometry = geometry
+        self.materials = materials
+
+    def __call__(self, mvp, only_alpha: bool, iter_num, resolution: int,
+                 permute_surface_scheduler=None, fit_normal: bool = False,
+                 fit_depth: bool = False, background=None, campos=None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        """{"shaded", "geo_regularization"[, "n", "d"]} of the views mvp
+        (B,4,4). With a permute scheduler that fires at ``iter_num`` the
+        geometry's surface vertices are perturbed first, by draws from
+        ``generator`` (a CPU generator; seeded by iter_num if None)."""
+        geo = self.geometry
+        if permute_surface_scheduler is not None:
+            dev = permute_surface_scheduler(int(iter_num))
+            if dev is not None:
+                gen = generator if generator is not None else \
+                    torch.Generator().manual_seed(int(iter_num))
+                geo.set_tet_v(permute_surface_vertices(
+                    geo.tet_v, geo.statics.surface_vid, gen, dev))
+        material_fn = material_params = None
+        if self.materials is not None:
+            material_fn = self.materials.apply_fn
+            material_params = self.materials.params
+        out = render_views(
+            geo.tet_v, geo.statics,
+            torch.as_tensor(mvp, dtype=torch.float32, device=geo.device),
+            int(iter_num), resolution, only_alpha=only_alpha,
+            material_fn=material_fn, material_params=material_params,
+            background=background, campos=campos, fit_normal=fit_normal,
+            fit_depth=fit_depth, is_ortho=self.cfg.is_orhto)
+        d = {"shaded": out.shaded,
+             "geo_regularization": out.geo_regularization}
+        if out.normal is not None:
+            d["n"] = out.normal
+        if out.depth is not None:
+            d["d"] = out.depth
+        return d
+
+    def export(self, path: str, folder: str, texture_res: int = 1024):
+        """The textured OBJ (reference :165-241), through the materials'
+        bake once a material is fitted."""
+        if self.materials is None:
+            raise ValueError("export requires a fitted material")
+        from ..materials.export import export_textured_obj
+        export_textured_obj(self.geometry, self.materials, path, folder,
+                            texture_res=texture_res)

@@ -32,9 +32,9 @@ warns).
 geometry, the material and the data loader from the config's registries,
 the optimizer and its schedule, the permute-surface scheduler, the depth
 switch, periodic remeshing (``remesh_every``), logs, exports (the textured
-OBJ bake after the texture stage), checkpoints, resume and the SIGTERM/SIGINT
-finish. Knobs of parts not yet
-ported raise ``NotImplementedError`` (``_refuse_unported``).
+OBJ bake after the texture stage), checkpoints, resume, the SIGTERM/SIGINT
+finish and the sanitizers (``debug_nans``, ``anomaly``). ``main`` hands a
+config with an ``sds`` block to the image-to-3D driver (``train_sds.py``).
 
 Over W > 1 ranks (processes of one ``torch.distributed`` group, started by
 ``torchrun`` or ``tools/run_ranks.py``; ``main`` joins the group) the ranks
@@ -81,6 +81,7 @@ from .parallel.mesh import BROADCAST, MEAN, SUM, shard_batch, sync_step
 from .parallel.spatial import (shard_spatial_train_batch, slab_rows,
                                spatial_geometry_loss)
 from .render.pipeline import render_views, render_visibility
+from .utils import debug
 from .utils.checkpoint import (latest_checkpoint_step, restore_checkpoint,
                                save_checkpoint)
 from .utils.env import get_rank, get_world_size, init_distributed
@@ -480,23 +481,13 @@ def run_steps(step: Callable, state: TrainState, batch: dict, start_it: int,
     return state, outs
 
 
-def _not_ported(what: str, item: int):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1 item "
-                              f"{item})")
-
-
-def _refuse_unported(cfg) -> None:
-    """Raise for every knob whose part of the JAX package is not ported,
-    rather than running a different path."""
+def _check_stage(cfg) -> None:
+    """Raise for a fitting_stage other than geometry or texture, before
+    anything is built."""
     stage = cfg.get("fitting_stage", "geometry")
     if stage not in ("geometry", "texture"):
         raise ValueError(f"unknown fitting_stage {stage!r} (geometry or "
                          f"texture)")
-    for knob in ("debug_nans", "anomaly"):
-        if cfg.get(knob, False):
-            _not_ported(knob, 7)
-    if cfg.get("sds"):
-        _not_ported("sds", 8)
 
 
 def _exact_texture_loss(cfg, geometry, material, dataloader, resolution,
@@ -574,9 +565,20 @@ def train(cfg, device: DeviceLike = None):
     """Run the stage ``fitting_stage`` of ``cfg`` (geometry or texture) on
     ``device`` (``cuda`` unless the caller asks for the CPU); returns
     (state, geometry). Over W > 1 ranks (the process group joined first,
-    see the module doc) each rank calls it with its own device."""
+    see the module doc) each rank calls it with its own device.
+
+    ``debug_nans: true`` runs it under the NaN trap and ``anomaly: true``
+    in anomaly mode (``utils/debug.py``; train.py:411-417), both for this
+    run only: the settings before it are restored when it returns or
+    raises."""
     dev = resolve_device(device)
-    _refuse_unported(cfg)
+    _check_stage(cfg)
+    with debug.sanitizers(debug_nans=bool(cfg.get("debug_nans", False)),
+                          anomaly=bool(cfg.get("anomaly", False))):
+        return _train(cfg, dev)
+
+
+def _train(cfg, dev: torch.device):
     rank, world = get_rank(), get_world_size()
     _rank_check(cfg, rank, world)
     is_main = rank == 0
@@ -913,7 +915,9 @@ def _dump_images(out_path, it, state, dataloader, geometry, resolution):
 
 
 def main(argv=None, device: DeviceLike = None):
-    """``--config file.yaml`` plus ``key.sub=value`` overrides -> train();
+    """``--config file.yaml`` plus ``key.sub=value`` overrides -> train(),
+    or train_sds() when the config has an ``sds`` block (the image-to-3D
+    SDS driver, ``train_sds.py``), as the JAX package's main dispatches;
     returns its (state, geometry). Joins the process group first when the
     environment names more than one rank (``torchrun --nproc-per-node N -m
     tssplat_torch.train ...``); each rank then trains on its own card, or
@@ -923,7 +927,11 @@ def main(argv=None, device: DeviceLike = None):
     args, extras = parser.parse_known_args(argv)
     rank_dev = init_distributed(device=device)
     cfg = load_config(args.config, cli_args=extras)
-    return train(cfg, device=device if rank_dev is None else rank_dev)
+    dev = device if rank_dev is None else rank_dev
+    if cfg.get("sds"):
+        from .train_sds import train_sds
+        return train_sds(cfg, device=dev)
+    return train(cfg, device=dev)
 
 
 if __name__ == "__main__":
