@@ -191,16 +191,35 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                plain, with anomaly=true and with debug_nans=true: the same
                losses to the bit, and a NaN planted in K3's input trapped
                by the NaN trap, naming the kernel
+ 15. tetwild (``tetwild_phase``, run after 14 in phase 10's directory):
+               (a) phase 10's first 8 images, written by
+               write_synthetic_dataset through render_views_of_mesh, equal
+               byte for byte the composition that writer used before
+               (render_rgb_of_mesh + render_alpha_of_mesh); (b) gso.yaml
+               through main() at 120 views of 512² on phase 10's dataset
+               and 18 key points with geometry.tetwild_exec naming a
+               stand-in TetWild written at run time
+               (tools/tetwild_stub.py: a tet cone on each triangle of the
+               template icosphere(3)), init path A in a cache folder of its
+               own, view_chunk auto, 8 iterations: the stand-in's wall
+               seconds (18 processes at once), the mesh's vertices, tets
+               and faces (18 cones of 1,280), the layout its faces take (K1
+               or K2b), the driver's line (it/s, peak memory, launches an
+               iteration), img_loss falling, the launches the layout rule
+               predicts; then one 8-view chunk of the final geometry
+               (``_check_chunk``): each kernel the run launched against its
+               plain version
 The launch counts are zeroed just before each main-path phase (4, 7, 8,
-10a-c, 11a-b, 12c, 13b-e, each run of 14) and read just after it. Then one
-JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase 4, of
-K2b from 7, of K2a from 8; ``launches_texture`` from phase 11 (a);
+10a-c, 11a-b, 12c, 13b-e, each run of 14, 15b) and read just after it. Then
+one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
+4, of K2b from 7, of K2a from 8; ``launches_texture`` from phase 11 (a);
 ``launches_remesh``, an iteration of 12 (c) before and after the remesh;
-``launches_image_to_3d``, each run of 14; ``viewport_max_err``,
-``viewport_ms`` and ``viewport_bound_ms`` of 13 (a) for K1, K2a, K2b, K4
-and K5), the nvidia-smi line, and as the last line {"ok": true, "device":
-{...}}. Phase 14 alone, from Python on the card:
-``chip_smoke.image_to_3d_alone(smi)``.
+``launches_image_to_3d``, each run of 14; ``launches_tetwild``, 15 (b);
+``viewport_max_err``, ``viewport_ms`` and ``viewport_bound_ms`` of 13 (a)
+for K1, K2a, K2b, K4 and K5), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}. Phases 14 and 15 alone, from Python on the
+card: ``chip_smoke.image_to_3d_alone(smi)``,
+``chip_smoke.tetwild_alone(smi)``.
 """
 
 import contextlib
@@ -254,6 +273,7 @@ def require(cond, what):
 
 
 def main():
+    t_script = time.perf_counter()
     # ---- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this run "
@@ -698,17 +718,20 @@ def main():
               flush=True)
 
     del ms_geo, ms_batch, two, two_cpu
-    texture_counts, i3d_counts = driver_phase(smi)
+    texture_counts, i3d_counts, tetwild_counts = driver_phase(smi)
     for r in results:
         r["launches_texture"] = texture_counts.get(r["name"], 0)
         r["launches_image_to_3d"] = {run: c.get(r["name"], 0)
                                      for run, c in i3d_counts.items()}
+        r["launches_tetwild"] = tetwild_counts.get(r["name"], 0)
     before, after = pipeline_phase(smi)
     for r in results:
         r["launches_remesh"] = {"before": before[r["name"]],
                                 "after": after[r["name"]]}
 
     require(len(results) == len(rk.KERNELS), "a kernel is missing a report")
+    print(f"[done] every phase passed in "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1204,12 +1227,13 @@ def _make_runner(smi, tmp, base, views, res, device=None):
 
 
 def driver_phase(smi, views=120, res=512, device=None):
-    """Phases 10, 11, 13 (b)-(e) and 14: configs/gso.yaml through
+    """Phases 10, 11, 13 (b)-(e), 14 and 15: configs/gso.yaml through
     tssplat_torch.train.main at ``views`` views of res² (120 of 512², see
     the module docstring) on ``device`` (the card unless given), the
-    geometry stage, the texture stage on its result, the ranks, then image
-    to 3D in the same directory. Returns the launch counts of 11 (a) and
-    those of 14's runs ({run: counts})."""
+    geometry stage, the texture stage on its result, the ranks, image to
+    3D, then the TetWild path in the same directory. Returns the launch
+    counts of 11 (a), those of 14's runs ({run: counts}) and those of
+    15 (b)."""
     from tssplat_torch.mesh.spheres import icosphere
     from tssplat_torch.tools.synthetic import (write_multisphere_key_points,
                                                write_synthetic_dataset)
@@ -1299,7 +1323,8 @@ def driver_phase(smi, views=120, res=512, device=None):
         ranks_phase(smi, tmp, gso, base, f"{out_a}/final", views,
                     device=device)
         i3d = image_to_3d_phase(smi, tmp, run, views, res, device)
-        return counts, i3d
+        tetwild = tetwild_phase(smi, tmp, run, views, res, device)
+        return counts, i3d, tetwild
 
 
 # the six named views of the Wonder3D layout and the azimuths of
@@ -1604,6 +1629,118 @@ def image_to_3d_alone(smi, views=120, res=512, device=None, **kw):
         return image_to_3d_phase(
             smi, tmp, _make_runner(smi, tmp, base, views, res, device),
             views, res, device, **kw)
+
+def tetwild_phase(smi, tmp, run, views, res, device=None):
+    """Phase 15 (see the module docstring), in phase 10's directory
+    ``tmp`` (its dataset and key points) with driver_phase's main() runner
+    ``run``. Returns the launch counts of its run."""
+    import numpy as np
+    from PIL import Image
+    import tssplat_torch.geometry.multisphere as ms
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.mesh.tetmesh import TetMesh
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.tools.synthetic import (render_alpha_of_mesh,
+                                               render_rgb_of_mesh)
+    from tssplat_torch.tools.tetwild_stub import write_tetwild_stub
+    from tssplat_torch.train import validated_tile_k
+    import tssplat_torch.train as tt
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    t_phase = time.perf_counter()
+    # (a) phase 10's images, written through render_views_of_mesh, are the
+    # bytes of the composition it replaced
+    v, f = icosphere(subdivisions=3)
+    v = v * np.asarray([0.30, 0.24, 0.18])
+    mvp8 = np.stack([np.load(f"{tmp}/img/mvp_mtx_{i}.npy") for i in range(8)])
+    rgba = np.concatenate([
+        render_rgb_of_mesh(v, f, mvp8, res, device=dev).cpu().numpy(),
+        render_alpha_of_mesh(v, f, mvp8, res, device=dev).cpu().numpy()], -1)
+    want = np.clip(rgba * 255.0, 0, 255).astype(np.uint8)
+    got = np.stack([np.asarray(Image.open(f"{tmp}/img/img_rgba_{i}.png"))
+                    for i in range(8)])
+    require(np.array_equal(got, want), "(a): phase 10's images differ from "
+            "render_rgb_of_mesh + render_alpha_of_mesh at "
+            f"{int((got != want).any(-1).sum())} pixels")
+    print(f"[tetwild] (a) phase 10's first 8 images ({res}²) equal the "
+          f"bytes of render_rgb_of_mesh + render_alpha_of_mesh", flush=True)
+
+    # (b) gso.yaml with the stand-in TetWild: 8 iterations, view_chunk auto
+    stub = write_tetwild_stub(f"{tmp}/tetwild_exec")
+    cache = f"{tmp}/cache_tetwild"
+    meshed = ms._tetwild_spheres
+    took = []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        parts = meshed(*args, **kw)
+        took.append(time.perf_counter() - t0)
+        return parts
+
+    ms._tetwild_spheres = timed
+    try:
+        logged, out, text = run(
+            "tetwild", 8, None, f"geometry.tetwild_exec={stub}",
+            f"geometry.tetwild_cache_folder={cache}", "log_every=1",
+            "export_every=100")
+    finally:
+        ms._tetwild_spheres = meshed
+    counts = rk.launch_counts()
+    n_sp = len(json.load(open(f"{tmp}/kp.json"))["pt"])
+    mesh = TetMesh(np.load(f"{cache}/final_tet_v.npy"),
+                   np.load(f"{cache}/final_tet_t.npy"))
+    F = int(mesh.surface_fid.shape[0])
+    n_tri = icosphere(subdivisions=3)[1].shape[0]    # gso.yaml's template
+    require(len(took) == 1, f"(b): the TetWild path ran {len(took)} times")
+    require(mesh.num_tets == n_sp * n_tri and F == n_sp * n_tri
+            and all(os.path.exists(f"{cache}/temp{i}.msh_TO.npy")
+                    for i in range(n_sp)),
+            f"(b): {mesh.num_tets} tets, {F} faces: not the stand-in's "
+            f"{n_sp} cones of {n_tri}")
+    vc = tt._auto_view_chunk(views, 1, res)
+    want = dict.fromkeys(counts, 0)
+    want.update(_path_launches(F, views, res, 8,
+                               chunks=views // vc if vc else 1))
+    require(counts == want, f"(b): launches {counts}, expected {want}")
+    require(_falls(logged), f"(b): img_loss did not fall {logged}")
+    layout = "K2b" if counts.get("visibility_capped") else "K1"
+    print(f"[tetwild] (b) {n_sp} spheres meshed by the stand-in in "
+          f"{took[0]:.2f} s (wall, {n_sp} processes at once): "
+          f"{mesh.num_vertices} vertices, {mesh.num_tets} tets, {F} faces, "
+          f"the faces on {layout}'s layout; {views}x{res}² for 8 iterations "
+          f"(the driver's line above)", flush=True)
+    geo = _final_geometry(out, dev)
+    mvp_t = torch.tensor(mvp8, device=dev)
+    _check_chunk("(b) tetwild, final geometry", geo.statics, geo.tet_v,
+                 mvp_t, res, validated_tile_k(geo, {"mvp": mvp_t}, res),
+                 tag="tetwild")
+    print(f"[tetwild] phase 15 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return counts
+
+
+def tetwild_alone(smi, views=120, res=512, device=None):
+    """Phase 15 by itself: phase 10's dataset and key points written into
+    a temporary directory, then ``tetwild_phase``. Smaller arguments
+    rehearse it (``device="cpu"`` with the cuda synchronisation and memory
+    calls stubbed)."""
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.tools.synthetic import (write_multisphere_key_points,
+                                               write_synthetic_dataset)
+    with tempfile.TemporaryDirectory(prefix="tss_tetwild_") as tmp:
+        v, f = icosphere(subdivisions=3)
+        write_synthetic_dataset(os.path.join(tmp, "img"),
+                                v * [0.30, 0.24, 0.18], f, n_views=views,
+                                resolution=res, device=device)
+        write_multisphere_key_points(os.path.join(tmp, "kp.json"), 18)
+        base = [f"data.dataset_config.image_root={tmp}/img",
+                f"data.batch_size={views}",
+                f"geometry.key_points_file_path={tmp}/kp.json",
+                f"geometry.tetwild_cache_folder={tmp}/cache"]
+        return tetwild_phase(
+            smi, tmp, _make_runner(smi, tmp, base, views, res, device),
+            views, res, device)
+
 
 def _bench_bins(dev):
     """K1's bins, resolution and face count of the bench scene's first 2

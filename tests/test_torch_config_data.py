@@ -21,6 +21,7 @@ from tssplat_tpu.geometry.tet_geometry import \
     LinearInterpolateScheduler as JaxScheduler
 from tssplat_tpu.mesh.spheres import icosphere, tet_sphere
 from tssplat_tpu.mesh.tetmesh import TetMesh as JaxTetMesh
+from tssplat_tpu.ops.transform import fibonacci_views as jax_views
 from tssplat_tpu.tools.synthetic import \
     write_synthetic_dataset as jax_write_dataset
 
@@ -34,6 +35,7 @@ from tssplat_torch.geometry import (LinearInterpolateScheduler,
 from tssplat_torch.mesh.tetmesh import TetMesh
 from tssplat_torch.optim import adam, adam_uniform, apply_updates
 from tssplat_torch.tools.synthetic import (render_rgb_of_mesh,
+                                           render_views_of_mesh,
                                            write_synthetic_dataset)
 from tssplat_torch.train import TrainState, init_train_state
 from tssplat_torch.utils.tree import tree_leaves, tree_map
@@ -248,28 +250,17 @@ def test_writer_matches_jax(datasets):
             img_t[..., :3], np.clip(rgb * 255.0, 0, 255).astype(np.uint8))
 
 
-def test_writer_rgb_matches_jax(tmp_path):
-    """The two writers' img_rgba_*.png at 4 views of 64² of the ellipsoid:
-    every byte within 1 LSB, but at the pixels where JAX's writer disagrees
-    with JAX's own corner-layout colour antialias (ROADMAP queue 3: its
-    clip transform of the 642 shared vertices and of the 3,840 corners
-    differ in the last bit, which moves the AA of a few interior pixel
-    pairs: 12 of view 0's 112 foreground pixels); the port's RGB equals
-    the corner-layout chain within 1 LSB everywhere."""
+def _jax_corner_rgb(v, f, mvp, res, light_dir=(0.3, 0.4, 0.85),
+                    base_color=(0.8, 0.8, 0.8)):
+    """JAX's writer's colour chain (tools/synthetic.py:60-69) in the
+    corner layout: (B,res,res,3) float32."""
     import jax.numpy as jnp
     from tssplat_tpu.mesh.surface import triangle_edge_neighbors
     from tssplat_tpu.ops.rasterize import antialias, interpolate, rasterize
-    from tssplat_tpu.ops.transform import fibonacci_views, transform_pos
+    from tssplat_tpu.ops.transform import transform_pos
     from tssplat_tpu.geometry.tet_geometry import compute_vertex_normals
 
-    v, f = icosphere(subdivisions=3)
-    v = v * np.asarray([0.30, 0.24, 0.18])
-    n, res = 4, 64
-    jax_write_dataset(str(tmp_path / "jax"), v, f, n_views=n, resolution=res)
-    write_synthetic_dataset(str(tmp_path / "torch"), v, f, n_views=n,
-                            resolution=res, device="cpu")
-    # JAX's writer's colour chain in the corner layout
-    mvp = jnp.asarray(fibonacci_views(n)[0], jnp.float32)
+    mvp = jnp.asarray(mvp, jnp.float32)
     F = f.shape[0]
     tri_c = jnp.arange(3 * F, dtype=jnp.int32).reshape(F, 3)
     vc = jnp.asarray(v[f.reshape(-1)], jnp.float32)
@@ -280,13 +271,158 @@ def test_writer_rgb_matches_jax(tmp_path):
         rast, tri_c, corner=True)
     nrm = nrm / jnp.maximum(jnp.linalg.norm(nrm, axis=-1, keepdims=True),
                             1e-8)
-    ld = np.asarray([0.3, 0.4, 0.85], np.float32)
+    ld = np.asarray(light_dir, np.float32)
     lam = jnp.clip(jnp.abs(jnp.sum(nrm * (ld / np.linalg.norm(ld)), -1,
                                    keepdims=True)), 0.2, 1.0)
-    col = antialias(lam * 0.8 * (rast[..., 3:4] > 0), rast, pc, tri_c,
+    col = antialias(lam * jnp.asarray(base_color, jnp.float32)
+                    * (rast[..., 3:4] > 0), rast, pc, tri_c,
                     jnp.asarray(triangle_edge_neighbors(f), jnp.int32),
                     corner=True)
-    corner = np.clip(np.asarray(col) * 255.0, 0, 255).astype(np.uint8)
+    return np.asarray(col)
+
+
+def test_render_views_rgba_matches_jax():
+    """render_views_of_mesh keeps JAX's contract: (rgba (B,H,W,4), depth
+    (B,H,W), normal (B,H,W,3)) float32 numpy arrays, here with a light
+    direction and base colour of its own. Unpacked as JAX's callers unpack
+    it (tests/test_texture_exact.py:35-43: the RGB composited over a
+    white background by the alpha), against JAX's render_views_of_mesh
+    on 3 views of 128² of the ellipsoid (the port two views a chunk):
+    alpha within 1e-5, depth 1e-5 and normal 1e-4, but at <= 2 pixels
+    whose centre lies on an edge or whose winner is a z near-tie
+    (tests/test_torch_package.py's tolerances); as the writer's bytes,
+    the RGB within 1 LSB of JAX's corner-layout chain, and the composite
+    within 1 LSB of JAX's but where JAX's two layouts part by more than 1
+    LSB, at most 0.2 of the foreground (test_writer_rgb_matches_jax's
+    allowance), each but at those <= 2 pixels and their 4 neighbours
+    (one winner flip at a z near-tie, 1e-6 apart, on view 2 here: its
+    right neighbour's colour, antialiased with it, is 2 LSB off)."""
+    from tssplat_tpu.tools.synthetic import render_views_of_mesh as jax_rv
+    v, f = icosphere(subdivisions=3)
+    v = v * np.asarray([0.30, 0.24, 0.18])
+    mvp, _, campos = jax_views(3)
+    kw = dict(light_dir=(-0.5, 0.2, 0.6), base_color=(0.9, 0.5, 0.3))
+    got = render_views_of_mesh(v, f, mvp, campos, 128, view_chunk=2,
+                               device="cpu", **kw)
+    want = jax_rv(v, f, mvp, campos, 128, **kw)
+    for a, b, shape in zip(got, want, ((4,), (), (3,))):
+        assert isinstance(a, np.ndarray) and a.dtype == np.float32
+        assert a.shape == b.shape == (3, 128, 128) + shape
+    (rgba, d_t, n_t), (rgba_j, d_j, n_j) = got, want
+
+    def composite(rgba):
+        bg = np.ones(rgba.shape[:-1] + (3,), np.float32)
+        return bg + (rgba[..., :3] - bg) * rgba[..., 3:4]
+
+    fg = rgba_j[..., 3] > 0
+    assert fg.sum() > 500
+    edge = (np.abs(rgba[..., 3] - rgba_j[..., 3]) > 1e-5) \
+        | (np.abs(d_t - d_j) > 1e-5) | (np.abs(n_t - n_j).max(-1) > 1e-4)
+    assert edge.sum() <= 2
+    def u8(x):                                         # the writer's bytes
+        return np.clip(x * 255.0, 0, 255).astype(np.uint8).astype(int)
+
+    # a winner taken at a z near-tie shades its pixel from the other face,
+    # and the colour antialias carries that into the 4 pixels paired
+    # with it
+    pad = np.pad(edge, ((0, 0), (1, 1), (1, 1)))
+    near = edge | pad[:, :-2, 1:-1] | pad[:, 2:, 1:-1] | pad[:, 1:-1, :-2] \
+        | pad[:, 1:-1, 2:]
+    corner = u8(_jax_corner_rgb(v, f, mvp, 128, **kw))
+    assert np.abs(u8(rgba[..., :3]) - corner).max(-1)[~near].max() <= 1
+    layout = np.abs(u8(rgba_j[..., :3]) - corner).max(-1) > 1
+    assert layout.sum() <= 0.2 * fg.sum()
+    diff = np.abs(u8(composite(rgba)) - u8(composite(rgba_j))).max(-1)
+    assert diff[~layout & ~near].max() <= 1
+    assert rgba[..., :3].max() > 0.2                   # shaded, not black
+
+
+@pytest.mark.parametrize("view_chunk", [1, 3])
+def test_render_views_chunks_agree(view_chunk):
+    """Chunks of 1 or 3 views (a ragged tail of 2) render the bits of one
+    chunk of all 5."""
+    v, f = icosphere(subdivisions=2)
+    mvp, _, campos = jax_views(5)
+    want = render_views_of_mesh(v * 0.3, f, mvp, campos, 48, view_chunk=8,
+                                device="cpu")
+    got = render_views_of_mesh(v * 0.3, f, mvp, campos, 48,
+                               view_chunk=view_chunk, device="cpu")
+    assert want[0][..., 3].sum() > 100
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_writer_bytes_equal_the_composition_it_replaces(tmp_path):
+    """write_synthetic_dataset, now through render_views_of_mesh, writes
+    every file byte for byte as the writer before it did: in chunks of 8
+    views, the PNG from render_rgb_of_mesh and render_alpha_of_mesh, the
+    depth and normal from the rasterized winners (10 views: a ragged
+    second chunk)."""
+    import filecmp
+    from tssplat_torch.geometry import compute_vertex_normals
+    from tssplat_torch.ops import interpolate, rasterize, transform_pos
+    from tssplat_torch.tools.synthetic import render_alpha_of_mesh
+    v, f = icosphere(subdivisions=2)
+    v = v * np.asarray([0.30, 0.24, 0.18])
+    n, res = 10, 32
+    write_synthetic_dataset(str(tmp_path / "new"), v, f, n_views=n,
+                            resolution=res, device="cpu")
+    old = tmp_path / "old"
+    old.mkdir()
+    mvp, mv, campos = jax_views(n)
+    ft = torch.as_tensor(f)
+    corners = torch.as_tensor(v[f.reshape(-1)], dtype=torch.float32)
+    vn = compute_vertex_normals(torch.as_tensor(v, dtype=torch.float32),
+                                ft)[ft.reshape(-1)]
+    for s in range(0, n, 8):
+        m = mvp[s:s + 8]
+        alpha = render_alpha_of_mesh(v, f, m, res, device="cpu").numpy()
+        rgb = render_rgb_of_mesh(v, f, m, res, device="cpu").numpy()
+        with torch.no_grad():
+            rast, _ = rasterize(transform_pos(torch.as_tensor(
+                m, dtype=torch.float32), corners), (res, res))
+            nrm = interpolate(vn, rast)
+            nrm = nrm / torch.clamp_min(torch.linalg.norm(nrm, dim=-1,
+                                                          keepdim=True), 1e-8)
+            fg = rast[..., 3:4] > 0
+            cam = torch.as_tensor(campos[s:s + 8], dtype=torch.float32)
+            depth = (torch.linalg.norm(interpolate(corners, rast)
+                                       - cam[:, None, None, :], dim=-1)
+                     * fg[..., 0]).numpy()
+            normal = (nrm * fg).numpy()
+        rgba = np.concatenate([rgb, alpha], axis=-1)
+        for j in range(alpha.shape[0]):
+            i = s + j
+            Image.fromarray(np.clip(rgba[j] * 255.0, 0, 255).astype(
+                np.uint8)).save(old / f"img_rgba_{i}.png")
+            np.save(old / f"mvp_mtx_{i}.npy", mvp[i].astype(np.float32))
+            np.save(old / f"mv_{i}.npy", mv[i].astype(np.float32))
+            np.save(old / f"depth_{i}.npy", depth[j].astype(np.float32))
+            np.save(old / f"normal_{i}.npy", np.concatenate(
+                [normal[j], alpha[j]], axis=-1).astype(np.float32))
+    names = sorted(os.listdir(old))
+    assert names == sorted(os.listdir(tmp_path / "new")) and len(names) == 50
+    for name in names:
+        assert filecmp.cmp(old / name, tmp_path / "new" / name,
+                           shallow=False), name
+
+
+def test_writer_rgb_matches_jax(tmp_path):
+    """The two writers' img_rgba_*.png at 4 views of 64² of the ellipsoid:
+    every byte within 1 LSB, but at the pixels where JAX's writer disagrees
+    with JAX's own corner-layout colour antialias (ROADMAP queue 3: its
+    clip transform of the 642 shared vertices and of the 3,840 corners
+    differ in the last bit, which moves the AA of a few interior pixel
+    pairs: 12 of view 0's 112 foreground pixels); the port's RGB equals
+    the corner-layout chain within 1 LSB everywhere."""
+    v, f = icosphere(subdivisions=3)
+    v = v * np.asarray([0.30, 0.24, 0.18])
+    n, res = 4, 64
+    jax_write_dataset(str(tmp_path / "jax"), v, f, n_views=n, resolution=res)
+    write_synthetic_dataset(str(tmp_path / "torch"), v, f, n_views=n,
+                            resolution=res, device="cpu")
+    corner = np.clip(_jax_corner_rgb(v, f, jax_views(n)[0], res) * 255.0,
+                     0, 255).astype(np.uint8)
     for i in range(n):
         a, b = (np.asarray(Image.open(tmp_path / d / f"img_rgba_{i}.png"))
                 .astype(int) for d in ("jax", "torch"))

@@ -13,10 +13,11 @@ import torch
 from tssplat_tpu.mesh.spheres import tet_sphere as jax_tet_sphere, icosphere
 from tssplat_tpu.mesh.tetmesh import TetMesh as JaxTetMesh
 from tssplat_tpu.ops.transform import fibonacci_views as jax_views
+from tssplat_tpu.ops.transform import transform_pos as jax_transform_pos
 
 from tssplat_torch.mesh.spheres import tet_sphere
 from tssplat_torch.mesh.tetmesh import TetMesh
-from tssplat_torch.ops.transform import fibonacci_views
+from tssplat_torch.ops.transform import fibonacci_views, transform_pos
 from tssplat_torch.geometry import (TetMeshGeometry,
                                     TetMeshMultiSphereGeometry)
 from tssplat_torch.tools.synthetic import (render_alpha_of_mesh,
@@ -105,6 +106,98 @@ def test_views_match_jax():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("is_ortho", [False, True])
+def test_transform_pos_is_vec_matches_jax(is_ortho):
+    """transform_pos(is_vec=True) takes directions (w = 0: no translation,
+    no ortho z division) as JAX's does, and is_vec=False points (w = 1):
+    to 1e-6 (torch.einsum against XLA's dot, a last bit apart)."""
+    import jax.numpy as jnp
+    mvp, _, _ = fibonacci_views(3)
+    mvp[:, :3, 3] += [0.5, -0.25, 0.75]               # a translation to drop
+    pos = np.random.default_rng(1).normal(size=(40, 3)).astype(np.float32)
+    got = {}
+    for is_vec in (True, False):
+        got[is_vec] = transform_pos(torch.tensor(mvp, dtype=torch.float32),
+                                    torch.from_numpy(pos), is_ortho=is_ortho,
+                                    is_vec=is_vec).numpy()
+        want = np.asarray(jax_transform_pos(
+            jnp.asarray(mvp, jnp.float32), jnp.asarray(pos),
+            is_ortho=is_ortho, is_vec=is_vec))
+        assert got[is_vec].shape == want.shape == (3, 40, 4)
+        np.testing.assert_allclose(got[is_vec], want, rtol=1e-6, atol=1e-6)
+    # a direction is the MVP's 4x3 block times (x, y, z), undivided
+    np.testing.assert_allclose(got[True], np.einsum("vj,bij->bvi", pos,
+                                                    mvp[:, :, :3]),
+                               rtol=1e-5, atol=1e-5)
+    assert np.abs(got[True] - got[False]).max() > 0.1
+
+
+def test_from_npy_and_save_surface_mesh_match_jax(tmp_path):
+    """TetMesh.from_npy reads what save(save_npy=True) writes, and builds
+    JAX's mesh from the same files; save_surface_mesh writes JAX's OBJ
+    byte for byte, and save() writes the same surface through it."""
+    import filecmp
+    v, t = tet_sphere(0.2, radius=0.3)
+    m = TetMesh(v, t)
+    m.update_vtx_pos(v * 1.1)
+    m.save(str(tmp_path), "m", save_npy=True)
+    got = TetMesh.from_npy(str(tmp_path / "m_vtx.npy"),
+                           str(tmp_path / "m_elem.npy"))
+    want = JaxTetMesh.from_npy(str(tmp_path / "m_vtx.npy"),
+                               str(tmp_path / "m_elem.npy"))
+    for a, b in ((got.vtx_init, v * 1.1), (got.elem, t),
+                 (got.vtx_init, want.vtx_init), (got.elem, want.elem),
+                 (got.surface_vid, want.surface_vid),
+                 (got.surface_fid, want.surface_fid)):
+        np.testing.assert_array_equal(a, b)
+    mj = JaxTetMesh(v, t)
+    mj.update_vtx_pos(v * 1.1)
+    m.save_surface_mesh(str(tmp_path / "t"))
+    mj.save_surface_mesh(str(tmp_path / "j"))
+    m.save_surface_mesh(str(tmp_path / "t"), "named.obj")
+    assert filecmp.cmp(tmp_path / "t" / "surface_mesh.obj",
+                       tmp_path / "j" / "surface_mesh.obj", shallow=False)
+    assert filecmp.cmp(tmp_path / "t" / "named.obj",
+                       tmp_path / "m_surface_mesh.obj", shallow=False)
+
+
+def test_ops_and_utils_export_the_jax_names():
+    """tssplat_torch.ops exports a counterpart of every name of
+    tssplat_tpu.ops but rasterize_ids_tiled (none by design), plus
+    antialias_color and visibility_ids; tssplat_torch.utils the rank
+    functions. In a fresh interpreter the imports load no JAX and build
+    or load no kernel library; the rasterize submodule stays reachable."""
+    import tssplat_tpu.ops as jax_ops
+    code = (
+        "import importlib, sys\n"
+        "from tssplat_torch.ops import (rasterize, interpolate, antialias,\n"
+        "    transform_pos, signed_distance)\n"
+        "from tssplat_torch.utils import (get_rank, get_world_size,\n"
+        "    init_distributed)\n"
+        "import tssplat_torch.ops as ops\n"
+        "from tssplat_torch.ops.rasterize import antialias_rows\n"
+        "from tssplat_torch.kernels import build\n"
+        "mod = importlib.import_module('tssplat_torch.ops.rasterize')\n"
+        "assert mod.rasterize is rasterize and ops.rasterize is rasterize\n"
+        "assert build._library.cache_info().currsize == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tssplat_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print(' '.join(ops.__all__))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())
+    assert names == (set(jax_ops.__all__) - {"rasterize_ids_tiled"}) | {
+        "antialias_color", "visibility_ids"}
+    import tssplat_torch.ops as ops
+    import tssplat_torch.utils as utils
+    assert all(callable(getattr(ops, n)) for n in names)
+    assert {"get_rank", "get_world_size", "init_distributed"} <= set(
+        utils.__all__)
+
+
 def test_synthetic_alpha_matches_jax():
     """The port's silhouette targets (its own visibility + antialias) equal
     the alpha of the JAX package's render_views_of_mesh. atol 1e-5: the
@@ -136,10 +229,10 @@ def test_synthetic_depth_normal_match_jax():
     sv = sv * np.asarray([0.30, 0.24, 0.18])
     mvp, _, campos = fibonacci_views(2)
     _, d_j, n_j = jax_rv(sv, sf, mvp, campos, 128)
-    alpha, d_t, n_t = render_views_of_mesh(sv, sf, mvp, campos, 128,
-                                           device="cpu")
-    assert alpha.shape == (2, 128, 128, 1)
+    rgba, d_t, n_t = render_views_of_mesh(sv, sf, mvp, campos, 128,
+                                          device="cpu")
+    assert rgba.shape == (2, 128, 128, 4)
     assert (d_j > 0).sum() > 500
-    dd = np.abs(d_t.numpy() - d_j)
-    dn = np.abs(n_t.numpy() - n_j).max(-1)
+    dd = np.abs(d_t - d_j)
+    dn = np.abs(n_t - n_j).max(-1)
     assert ((dd > 1e-5) | (dn > 1e-4)).sum() <= 2

@@ -76,6 +76,49 @@ def test_env_rank_matches_jax(monkeypatch):
     assert get_rank() == jax_get_rank() == 5
 
 
+def test_init_distributed_takes_jax_arguments():
+    """init_distributed(coordinator_address=, num_processes=,
+    process_id=), JAX's arguments, joins two CPU processes whose
+    environment names no rank, world or address: each reports its rank
+    and the world of 2, and an all_reduce sums both. num_processes=1 is
+    a no-op."""
+    import socket
+    import subprocess
+    import sys
+    assert init_distributed(device="cpu", num_processes=1) is None
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    code = (
+        "import sys, torch, torch.distributed as dist\n"
+        "from tssplat_torch.utils import get_rank, get_world_size, "
+        "init_distributed\n"
+        "i = int(sys.argv[1])\n"
+        "dev = init_distributed(device='cpu', coordinator_address="
+        f"'127.0.0.1:{port}', num_processes=2, process_id=i)\n"
+        "x = torch.tensor([i + 1.0])\n"
+        "dist.all_reduce(x)\n"
+        "print(dev, get_rank(), get_world_size(), float(x))\n"
+        "dist.destroy_process_group()\n")
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+        "SLURM_PROCID", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")}
+    env["PYTHONPATH"] = os.path.dirname(TESTS)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(i)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for i in range(2)]
+    try:
+        outs = [p.communicate(timeout=TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err
+        assert out.split() == ["cpu", str(i), "2", "3.0"]
+
+
 def test_run_ranks_all_reduce_and_broadcast():
     """Three gloo ranks: each result is the job's on its rank, the
     all_reduce sums every rank's value and the broadcast is rank 0's."""

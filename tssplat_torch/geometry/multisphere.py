@@ -4,7 +4,8 @@ TetMeshMultiSphereGeometry, geometry/tetmesh_geometry.py:200-382).
 
 Init paths, as in the JAX package:
   A (fresh): read the key-points JSON {pt, r}; per sphere, a tet ball at
-     the target edge length (``tet_sphere``, the native Delaunay ball);
+     the target edge length (``tet_sphere``, the native Delaunay ball, or
+     a TetWild process on the template sphere);
      concatenate the spheres with vertex offsets into one disjoint tet
      mesh; persist final_tet_v/t.npy in the cache folder and the per-sphere
      index JSONs in <output_path>/final and the cache folder.
@@ -13,8 +14,9 @@ Init paths, as in the JAX package:
 
 The smoothness coefficient is scaled by 1/num_spheres, and the target edge
 length comes from the smallest radius so every sphere gets >= ~100 surface
-triangles, clamped to [0.015, 0.03]. The TetWild subprocess path of the
-JAX package is not ported: configuring an existing ``tetwild_exec`` raises.
+triangles, clamped to [0.015, 0.03]. Where ``tetwild_exec`` names an
+existing file, path A meshes each sphere with that TetWild executable
+instead (``_tetwild_spheres``), one process per sphere, all at once.
 ``export`` also writes the per-sphere vertex/element arrays and the index
 JSONs (reference :373-382). ``remesh`` re-derives the per-sphere partition
 on the new tets (``repartition_spheres``) and keeps the 1/num_spheres
@@ -30,13 +32,15 @@ from __future__ import annotations
 import json
 import math
 import os
+import subprocess
 from dataclasses import dataclass
 
 import numpy as np
 
 from ..config import GEOMETRIES, parse_structured
 from ..device import DeviceLike, resolve_device
-from ..mesh.spheres import tet_capsule, tet_sphere
+from ..mesh.io import save_obj
+from ..mesh.spheres import load_template_sphere, tet_capsule, tet_sphere
 from ..mesh.tetmesh import TetMesh
 from .tet_geometry import TetMeshGeometry
 
@@ -103,6 +107,58 @@ def repartition_spheres(old_vtx, old_sid, new_vtx, new_elem):
         vtx_idx.append(vs.tolist())
         elem_idx.append(np.searchsorted(vs, ts).tolist())
     return vtx_idx, elem_idx
+
+
+def _tetwild_spheres(key_pts, key_r, edge_len, template_path, tetwild_exec,
+                     cache_folder):
+    """Path A through a TetWild executable (``_tetwild_spheres``,
+    multisphere.py:155; reference geometry/tetmesh_geometry.py:271-315):
+    per sphere, the template surface (``load_template_sphere``) scaled by
+    its radius and moved to its centre is written as ``temp{i}.obj`` in
+    the cache folder, and one process per sphere, all started together,
+    tetrahedralises it (a TetWild fork that writes ``temp{i}.msh_VO.npy``
+    and ``temp{i}.msh_TO.npy``). ``edge_len`` is not passed: the
+    reference asks for the template's vertex count instead. Returns the
+    per-sphere (verts f64, tets int64) in the order of the spheres.
+
+    Unlike the JAX package, which ignores how a process ends, a process
+    that exits non-zero or leaves an output missing raises, naming its
+    command; nothing falls back to the native spheres."""
+    os.makedirs(cache_folder, exist_ok=True)
+    tv, tf = load_template_sphere(template_path)
+    cmds = []
+    for i, (c, r) in enumerate(zip(key_pts, key_r)):
+        sv = tv * r + c
+        obj = os.path.join(cache_folder, f"temp{i}.obj")
+        save_obj(obj, sv, tf)
+        out = os.path.join(cache_folder, f"temp{i}.msh")
+        cmds.append([tetwild_exec, "--input", obj, "--output", out,
+                     "--targeted-num-v", str(sv.shape[0]), "--epsilon",
+                     "0.001", "--is-quiet"])
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd))
+        codes = [p.wait() for p in procs]
+    finally:                     # none left running if one fails to start
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    parts = []
+    for i, (cmd, code) in enumerate(zip(cmds, codes)):
+        if code != 0:
+            raise RuntimeError(f"TetWild exited with {code}: {' '.join(cmd)}")
+        arrays = []
+        for suffix in ("_VO.npy", "_TO.npy"):
+            path = os.path.join(cache_folder, f"temp{i}.msh{suffix}")
+            if not os.path.exists(path):
+                raise RuntimeError(f"TetWild wrote no {path}: "
+                                   f"{' '.join(cmd)}")
+            arrays.append(np.load(path))
+        parts.append((arrays[0].astype(np.float64),
+                      arrays[1].astype(np.int64)))
+    return parts
 
 
 def _read_json(path: str):
@@ -206,11 +262,12 @@ class TetMeshMultiSphereGeometry(_SphereBookkeepingMixin, TetMeshGeometry):
                 edge_len = target_edge_length(float(radii.min()))
                 if c.tetwild_exec and c.tetwild_exec.lower() not in (
                         "none", "null") and os.path.exists(c.tetwild_exec):
-                    raise NotImplementedError(
-                        "the TetWild subprocess path is not ported; leave "
-                        "tetwild_exec empty to mesh the spheres natively")
-                parts = [tet_sphere(edge_len, radius=float(r), center=p)
-                         for p, r in zip(pts, radii)]
+                    parts = _tetwild_spheres(pts, radii, edge_len,
+                                             c.template_surface_sphere_path,
+                                             c.tetwild_exec, cache)
+                else:
+                    parts = [tet_sphere(edge_len, radius=float(r), center=p)
+                             for p, r in zip(pts, radii)]
                 v, t, vtx_idx, elem_idx = _concat_spheres(parts)
                 os.makedirs(cache, exist_ok=True)
                 np.save(os.path.join(cache, "final_tet_v.npy"), v)

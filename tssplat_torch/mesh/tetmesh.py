@@ -78,6 +78,12 @@ class TetMesh:
         v, t = load_veg(path)
         return cls(v, t)
 
+    @classmethod
+    def from_npy(cls, vtx_path: str, elem_path: str) -> "TetMesh":
+        """The mesh of a vertex array (N,3) and a tet array (T,4), each an
+        .npy file (``TetMesh.from_npy``, tetmesh.py:96)."""
+        return cls(np.load(vtx_path), np.load(elem_path))
+
     @property
     def num_vertices(self) -> int:
         return self.vtx_init.shape[0]
@@ -127,6 +133,14 @@ class TetMesh:
     def surface_mesh(self) -> Tuple[np.ndarray, np.ndarray]:
         return self.vtx[self.surface_vid], self.surface_fid
 
+    def save_surface_mesh(self, path: str,
+                          filename: str = "surface_mesh.obj") -> None:
+        """The boundary surface at the current vertices as ``path/filename``
+        (OBJ)."""
+        os.makedirs(path, exist_ok=True)
+        sv, sf = self.surface_mesh()
+        save_obj(os.path.join(path, filename), sv, sf)
+
     def save(self, path: str, filename: str = "tet_mesh",
              save_surface_mesh: bool = True, save_npy: bool = False) -> None:
         """Persist as .veg (+ surface .obj, + ``_vtx.npy`` / ``_elem.npy``):
@@ -135,8 +149,7 @@ class TetMesh:
         save_veg(os.path.join(path, filename + ".veg"), self.vtx, self.elem,
                  E=self.E, nu=self.nu, density=self.density)
         if save_surface_mesh:
-            sv, sf = self.surface_mesh()
-            save_obj(os.path.join(path, filename + "_surface_mesh.obj"), sv, sf)
+            self.save_surface_mesh(path, filename + "_surface_mesh.obj")
         if save_npy:
             np.save(os.path.join(path, filename + "_vtx.npy"), self.vtx)
             np.save(os.path.join(path, filename + "_elem.npy"), self.elem)

@@ -13,7 +13,8 @@
       id+1), n_drop (B,); perspective-correct and differentiable in u, v, z
   rasterize_silhouette(pos_clip, (H, W), k) -> rasterize's rast with
       u = v = 0 and no gradient, n_drop
-  interpolate(attr, rast) -> (B,H,W,C) barycentric attributes
+  interpolate(attr, rast) -> (B,H,W,C) barycentric attributes of attr
+      (3F,C) shared by the views or (B,3F,C) per view
   antialias(rast, pos_clip, edge_nbrs) -> (B,H,W) coverage antialias of
       the ``rasterize`` path
   antialias_rows(rast, tbl6, edge_nbrs) -> K4/K5's inputs (ids, z, g6,
@@ -60,13 +61,17 @@ _INF = float("inf")
 
 
 def rasterize_ids(pos_clip: torch.Tensor, tri: torch.Tensor,
-                  resolution: Tuple[int, int], chunk: int = 64
-                  ) -> torch.Tensor:
+                  resolution: Tuple[int, int], chunk: int = 64,
+                  viewport=None) -> torch.Tensor:
     """Brute-force oracle (``rasterize_ids``, rasterize.py:133): every face
     against every pixel in chunks of faces; (B,H,W) int32 winning id+1.
-    Ties in z go to the smaller id (the chunk argmin keeps the first)."""
+    Ties in z go to the smaller id (the chunk argmin keeps the first).
+    ``viewport=(row0, full_h)``: the H rows are a slab of the image, as
+    for the renderers below."""
     H, W = resolution
-    px, py = pixel_centers(resolution, pos_clip.device)
+    row0, full_h = viewport if viewport is not None else (0, None)
+    px, py = pixel_centers(resolution, pos_clip.device, row0=row0,
+                           full_h=full_h)
     sx, sy, sz, v_ok = screen(pos_clip.detach())
     out = []
     F = tri.shape[0]
@@ -308,12 +313,13 @@ def rasterize_silhouette(pos_clip: torch.Tensor,
 
 def interpolate(attr: torch.Tensor, rast: torch.Tensor) -> torch.Tensor:
     """Barycentric attribute interpolation (``interpolate``,
-    rasterize.py:842, corner layout): attr (3F,C) shared by the views ->
-    u*a0 + v*a1 + (1-u-v)*a2 (B,H,W,C), zero on background."""
+    rasterize.py:842, corner layout): attr (3F,C) shared by the views, or
+    (B,3F,C) one per view -> u*a0 + v*a1 + (1-u-v)*a2 (B,H,W,C), zero on
+    background."""
     ids = rast[..., 3].detach().to(torch.int32)
     B = ids.shape[0]
-    F, C = attr.shape[0] // 3, attr.shape[1]
-    tbl = attr.reshape(1, F, 3 * C).expand(B, F, 3 * C)
+    F, C = attr.shape[-2] // 3, attr.shape[-1]
+    tbl = attr.reshape(-1, F, 3 * C).expand(B, F, 3 * C)
     a = _row_gather(tbl, ids).view(*ids.shape, 3, C)
     u = rast[..., 0:1]
     v = rast[..., 1:2]

@@ -22,13 +22,16 @@ DEFAULT_FAR = 10.0
 
 
 def transform_pos(mvp: torch.Tensor, pos: torch.Tensor,
-                  is_ortho: bool = False,
-                  ortho_z_div: float = 6.0) -> torch.Tensor:
+                  is_ortho: bool = False, ortho_z_div: float = 6.0,
+                  is_vec: bool = False) -> torch.Tensor:
     """World positions (V,3) -> clip space (B,V,4) for MVPs (B,4,4),
-    including the reference's orthographic z/6."""
-    posw = torch.cat([pos, torch.ones_like(pos[..., :1])], dim=-1)   # (V,4)
+    including the reference's orthographic z/6. ``is_vec`` transforms
+    directions (w = 0: no translation, and no ortho z division)."""
+    w = torch.zeros_like(pos[..., :1]) if is_vec else \
+        torch.ones_like(pos[..., :1])
+    posw = torch.cat([pos, w], dim=-1)                               # (V,4)
     res = torch.einsum("vj,bij->bvi", posw, mvp)
-    if is_ortho:
+    if is_ortho and not is_vec:
         res = torch.cat([res[..., :2], res[..., 2:3] / ortho_z_div,
                          res[..., 3:]], dim=-1)
     return res

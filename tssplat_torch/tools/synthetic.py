@@ -2,7 +2,8 @@
 pass (``tssplat_tpu/tools/synthetic.py``), the dataset writer, and the
 scenes built on them:
 
-  render_views_of_mesh          alpha, depth and normal images
+  render_views_of_mesh          RGBA, depth and normal images (numpy)
+  render_alpha_of_mesh          the antialiased alpha (a tensor)
   render_rgb_of_mesh            the Lambertian colour, antialiased
   write_synthetic_dataset       the on-disk layout MitsubaImgDataset reads
   write_multisphere_key_points  the key points of multisphere_scene
@@ -60,26 +61,64 @@ def render_alpha_of_mesh(verts, faces, mvp, resolution: int,
     return antialias_silhouette(ids, z, g6, gaux)[..., None]
 
 
-@torch.no_grad()
-def render_views_of_mesh(verts, faces, mvp, campos, resolution: int,
-                         device: DeviceLike = None):
-    """Alpha (B,H,W,1), depth ||p - campos|| (B,H,W) and geometric normal
-    (B,H,W,3) images of a fixed surface mesh, each zero on background
-    (``render_views_of_mesh``, tools/synthetic.py:30)."""
-    dev = resolve_device(device)
-    alpha = render_alpha_of_mesh(verts, faces, mvp, resolution, device=dev)
-    faces, corners, pos = _corner_clip(verts, faces, mvp, dev)
-    rast, _ = rasterize(pos, (int(resolution), int(resolution)))
+def _vertex_normals_and_shade(verts, faces, pos, rast, light_dir,
+                              base_color, dev):
+    """Interpolated, normalised vertex normals (B,H,W,3) of the winners of
+    ``rast``, and the antialiased Lambertian colour (B,H,W,3) of the JAX
+    writer (tools/synthetic.py:60-69): clip(|n . l|, 0.2, 1) x base_color
+    at the foreground pixels (l the normalised light direction), then the
+    colour antialias."""
     v = torch.as_tensor(np.asarray(verts), dtype=torch.float32, device=dev)
     f = torch.as_tensor(faces, device=dev)
     nrm = interpolate(compute_vertex_normals(v, f)[f.reshape(-1)], rast)
     nrm = nrm / torch.clamp_min(torch.linalg.norm(nrm, dim=-1, keepdim=True),
                                 1e-8)
+    ld = np.asarray(light_dir, np.float32)
+    ld = torch.as_tensor(ld / np.linalg.norm(ld), device=dev)
+    lam = torch.clamp(torch.abs(torch.sum(nrm * ld, dim=-1, keepdim=True)),
+                      0.2, 1.0)
+    color = lam * torch.tensor(base_color, dtype=torch.float32, device=dev)
+    nbrs = torch.as_tensor(triangle_edge_neighbors(faces), device=dev)
+    return nrm, antialias_color(color * (rast[..., 3:4] > 0), rast, pos, nbrs)
+
+
+@torch.no_grad()
+def _render_chunk(verts, faces, mvp, campos, resolution, light_dir,
+                  base_color, dev):
+    """rgba (B,H,W,4), depth (B,H,W) and normal (B,H,W,3) of one chunk of
+    views, on ``dev``."""
+    alpha = render_alpha_of_mesh(verts, faces, mvp, resolution, device=dev)
+    faces, corners, pos = _corner_clip(verts, faces, mvp, dev)
+    rast, _ = rasterize(pos, (int(resolution), int(resolution)))
+    nrm, rgb = _vertex_normals_and_shade(verts, faces, pos, rast, light_dir,
+                                         base_color, dev)
     fg = rast[..., 3:4] > 0
     wp = interpolate(corners, rast)
     cam = torch.as_tensor(np.asarray(campos), dtype=torch.float32, device=dev)
     depth = torch.linalg.norm(wp - cam[:, None, None, :], dim=-1) * fg[..., 0]
-    return alpha, depth, nrm * fg
+    return torch.cat([rgb, alpha], dim=-1), depth, nrm * fg
+
+
+def render_views_of_mesh(verts, faces, mvp, campos, resolution: int,
+                         light_dir=(0.3, 0.4, 0.85),
+                         base_color=(0.8, 0.8, 0.8), view_chunk: int = 8,
+                         device: DeviceLike = None):
+    """RGBA (B,H,W,4), depth ||p - campos|| (B,H,W) and geometric normal
+    (B,H,W,3) images of a fixed surface mesh as numpy float32 arrays
+    (``render_views_of_mesh``, tools/synthetic.py:30): the RGB is
+    ``render_rgb_of_mesh``'s antialiased Lambertian shade, the alpha
+    ``render_alpha_of_mesh``'s; alpha, depth and normal are zero on
+    background. Rendered on ``device`` ``view_chunk`` views at a time
+    (all at once for 0), the last chunk ragged."""
+    dev = resolve_device(device)
+    B = np.asarray(mvp).shape[0]
+    vc = min(view_chunk, B) if view_chunk else B
+    outs = []
+    for s in range(0, B, vc):
+        outs.append([t.cpu().numpy() for t in _render_chunk(
+            verts, faces, mvp[s:s + vc], campos[s:s + vc], resolution,
+            light_dir, base_color, dev)])
+    return tuple(np.concatenate(parts) for parts in zip(*outs))
 
 
 @torch.no_grad()
@@ -95,18 +134,8 @@ def render_rgb_of_mesh(verts, faces, mvp, resolution: int,
     dev = resolve_device(device)
     faces, _, pos = _corner_clip(verts, faces, mvp, dev)
     rast, _ = rasterize(pos, (int(resolution), int(resolution)))
-    v = torch.as_tensor(np.asarray(verts), dtype=torch.float32, device=dev)
-    f = torch.as_tensor(faces, device=dev)
-    nrm = interpolate(compute_vertex_normals(v, f)[f.reshape(-1)], rast)
-    nrm = nrm / torch.clamp_min(torch.linalg.norm(nrm, dim=-1, keepdim=True),
-                                1e-8)
-    ld = np.asarray(light_dir, np.float32)
-    ld = torch.as_tensor(ld / np.linalg.norm(ld), device=dev)
-    lam = torch.clamp(torch.abs(torch.sum(nrm * ld, dim=-1, keepdim=True)),
-                      0.2, 1.0)
-    color = lam * torch.tensor(base_color, dtype=torch.float32, device=dev)
-    nbrs = torch.as_tensor(triangle_edge_neighbors(faces), device=dev)
-    return antialias_color(color * (rast[..., 3:4] > 0), rast, pos, nbrs)
+    return _vertex_normals_and_shade(verts, faces, pos, rast, light_dir,
+                                     base_color, dev)[1]
 
 
 def write_synthetic_dataset(out_dir: str, verts, faces, n_views: int = 120,
@@ -117,42 +146,30 @@ def write_synthetic_dataset(out_dir: str, verts, faces, n_views: int = 120,
     """Write the reference dataset layout MitsubaImgDataset reads
     (``write_synthetic_dataset``, tools/synthetic.py:90; reference
     data/render_dataset.py:264-299) for the surface mesh (verts, faces)
-    seen from ``fibonacci_views(n_views, radius)``: ``img_rgba_{i}.png``,
-    ``mvp_mtx_{i}.npy``, ``mv_{i}.npy``, ``depth_{i}.npy`` and
-    ``normal_{i}.npy`` (normal with alpha as its 4th channel), rendered
-    8 views at a time (as the JAX writer renders them) on ``device``.
-
-    The images are the JAX writer's: the RGB channels are
-    ``render_rgb_of_mesh``'s antialiased Lambertian shade, the alpha, depth
-    and normal ``render_views_of_mesh``'s."""
+    seen from ``fibonacci_views(n_views, radius)``: ``img_rgba_{i}.png``
+    (``render_views_of_mesh``'s RGBA, rendered 8 views at a time as the
+    JAX writer renders them, on ``device``), ``mvp_mtx_{i}.npy``,
+    ``mv_{i}.npy``, ``depth_{i}.npy`` and ``normal_{i}.npy`` (normal with
+    alpha as its 4th channel)."""
     from PIL import Image
 
     os.makedirs(out_dir, exist_ok=True)
     mvp, mv, campos = fibonacci_views(n_views, radius=radius)
-    vc = 8
-    for s in range(0, n_views, vc):
-        alpha, depth, normal = (t.cpu().numpy() for t in render_views_of_mesh(
-            verts, faces, mvp[s:s + vc], campos[s:s + vc], resolution,
-            device=device))
-        rgb = render_rgb_of_mesh(verts, faces, mvp[s:s + vc], resolution,
-                                 device=device).cpu().numpy()
-        rgba = np.concatenate([rgb, alpha], axis=-1)
-        for j in range(alpha.shape[0]):
-            i = s + j
-            img = np.clip(rgba[j] * 255.0, 0, 255).astype(np.uint8)
-            Image.fromarray(img).save(
-                os.path.join(out_dir, f"img_rgba_{i}.png"))
-            np.save(os.path.join(out_dir, f"mvp_mtx_{i}.npy"),
-                    mvp[i].astype(np.float32))
-            np.save(os.path.join(out_dir, f"mv_{i}.npy"),
-                    mv[i].astype(np.float32))
-            if write_depth:
-                np.save(os.path.join(out_dir, f"depth_{i}.npy"),
-                        depth[j].astype(np.float32))
-            if write_normal:
-                np.save(os.path.join(out_dir, f"normal_{i}.npy"),
-                        np.concatenate([normal[j], alpha[j]],
-                                       axis=-1).astype(np.float32))
+    rgba, depth, normal = render_views_of_mesh(verts, faces, mvp, campos,
+                                               resolution, device=device)
+    for i in range(n_views):
+        img = np.clip(rgba[i] * 255.0, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(out_dir, f"img_rgba_{i}.png"))
+        np.save(os.path.join(out_dir, f"mvp_mtx_{i}.npy"),
+                mvp[i].astype(np.float32))
+        np.save(os.path.join(out_dir, f"mv_{i}.npy"), mv[i].astype(np.float32))
+        if write_depth:
+            np.save(os.path.join(out_dir, f"depth_{i}.npy"),
+                    depth[i].astype(np.float32))
+        if write_normal:
+            np.save(os.path.join(out_dir, f"normal_{i}.npy"),
+                    np.concatenate([normal[i], rgba[i][..., 3:4]],
+                                   axis=-1).astype(np.float32))
 
 
 def main(argv=None, device: DeviceLike = None):
@@ -226,11 +243,14 @@ def multisphere_scene(device: DeviceLike = None, n_spheres: int = 18,
             tetwild_cache_folder=os.path.join(tmp, "cache"),
             output_path=tmp), device=dev)
     sv, sf, mvp, campos = _ellipsoid_targets(n_views)
-    alpha, depth, normal = render_views_of_mesh(sv, sf, mvp, campos,
-                                                resolution, device=dev)
-    batch = {"mvp": torch.tensor(mvp, dtype=torch.float32, device=dev),
-             "campos": torch.tensor(campos, dtype=torch.float32, device=dev),
-             "img": alpha, "d": depth[..., None], "n": normal}
+    rgba, depth, normal = render_views_of_mesh(sv, sf, mvp, campos,
+                                               resolution, device=dev)
+
+    def on_dev(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+    batch = {"mvp": on_dev(mvp), "campos": on_dev(campos),
+             "img": on_dev(rgba[..., 3:4]), "d": on_dev(depth[..., None]),
+             "n": on_dev(normal)}
     return geo, batch
 
 

@@ -64,16 +64,24 @@ def rank_device(device: DeviceLike = None) -> torch.device:
 def init_distributed(backend: Optional[str] = None,
                      timeout: datetime.timedelta = datetime.timedelta(
                          minutes=10),
-                     device: DeviceLike = None) -> Optional[torch.device]:
-    """Join the process group when the environment says there is more than
-    one rank; a no-op (returning None) at world size 1 or when the group
-    exists. Returns this rank's device (``rank_device(device)``).
+                     device: DeviceLike = None,
+                     coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None
+                     ) -> Optional[torch.device]:
+    """Join the process group when the environment (or ``num_processes``)
+    says there is more than one rank; a no-op (returning None) at world
+    size 1 or when the group exists. Returns this rank's device
+    (``rank_device(device)``).
 
     ``backend`` defaults to ``nccl`` when every rank has a card of its own
     and ``gloo`` on the CPU or when ranks share a card (NCCL refuses two
     ranks on one device; gloo's all_reduce and broadcast take CUDA
-    tensors). The address is MASTER_ADDR:MASTER_PORT (``env://``)."""
-    world = get_world_size()
+    tensors). The address is ``coordinator_address`` ("host:port", JAX's
+    argument) when given, else MASTER_ADDR:MASTER_PORT (``env://``);
+    ``num_processes`` and ``process_id`` (JAX's names) the world size and
+    this rank, else the environment's."""
+    world = get_world_size() if num_processes is None else int(num_processes)
     if world <= 1 or dist.is_initialized():
         return None
     dev = rank_device(device)
@@ -83,7 +91,9 @@ def init_distributed(backend: Optional[str] = None,
             local_world <= torch.cuda.device_count() else "gloo"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend=backend, init_method="env://",
-                            rank=get_rank(), world_size=world,
-                            timeout=timeout)
+    dist.init_process_group(
+        backend=backend, timeout=timeout, world_size=world,
+        rank=get_rank() if process_id is None else int(process_id),
+        init_method=f"tcp://{coordinator_address}" if coordinator_address
+        else "env://")
     return dev
