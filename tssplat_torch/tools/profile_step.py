@@ -141,7 +141,7 @@ def main(argv=None):
         ids, z, g6k, gaux = vis_out
         g6 = winner_screen_rows(screen_xy_table(pos, F), ids, g6k)
         alpha = antialias_silhouette(ids, z, g6, gaux)
-        loss = torch.mean((alpha - batch["img"][..., 0]) ** 2) * 2000.0
+        loss = torch.mean((alpha - batch["img"][..., -1]) ** 2) * 2000.0
         torch.autograd.grad(loss, x, retain_graph=True)
 
     def update():
@@ -235,7 +235,7 @@ def texture_main(args):
     geo, batch = multisphere_scene(dev, 18, views, R)
     st = geo.statics
     k = validated_tile_k(geo, batch, R)
-    sv, sf, mvp, _ = _ellipsoid_targets(views)
+    sv, sf, mvp, _, _ = _ellipsoid_targets(views)
     rgb = torch.cat([render_rgb_of_mesh(sv, sf, mvp[s:s + 8], R, device=dev)
                      for s in range(0, views, 8)])
     bg = torch.ones_like(rgb)

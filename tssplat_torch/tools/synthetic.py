@@ -7,8 +7,8 @@ scenes built on them:
   render_rgb_of_mesh            the Lambertian colour, antialiased
   write_synthetic_dataset       the on-disk layout MitsubaImgDataset reads
   write_multisphere_key_points  the key points of multisphere_scene
-  bench_scene                   the repository's geometry-stage benchmark
-                                (one sphere)
+  bench_scene                   the benchmark's geometry and bench.py's
+                                batch (one sphere, or BENCH_SPHERES)
   multisphere_scene             the production multi-sphere geometry at
                                 the size where both capped visibility
                                 kernels run
@@ -186,31 +186,49 @@ def main(argv=None, device: DeviceLike = None):
                             device=device)
 
 
-def _ellipsoid_targets(n_views: int):
-    """The benchmark's target: ``icosphere(3) * (0.30, 0.24, 0.18)`` seen
-    from ``fibonacci_views(n_views)``."""
-    sv, sf = icosphere(subdivisions=3)
+def _ellipsoid_targets(n_views: int, subdivisions: int = 3):
+    """The benchmark's target: ``icosphere(subdivisions) * (0.30, 0.24,
+    0.18)`` seen from ``fibonacci_views(n_views)``: (verts, faces, mvp, mv,
+    campos)."""
+    sv, sf = icosphere(subdivisions=subdivisions)
     sv = sv * np.asarray([0.30, 0.24, 0.18])
-    mvp, _, campos = fibonacci_views(n_views)
-    return sv, sf, mvp, campos
+    mvp, mv, campos = fibonacci_views(n_views)
+    return sv, sf, mvp, mv, campos
 
 
 def bench_scene(device: DeviceLike = None, n_views: int = 8,
-                resolution: int = 512, edge_length: float = 0.03):
-    """The geometry-stage benchmark scene of the repository (bench.py
-    defaults): one TetSphere ``tet_sphere(edge_length, radius=0.25)``
-    (0.03: 4,741 vertices, 26,426 tets, 2,012 faces) fitted to the
-    silhouettes of the ellipsoid ``icosphere(3) * (0.30, 0.24, 0.18)`` seen
-    from ``fibonacci_views(n_views)``. Returns (TetMeshGeometry, batch)
-    with batch = {"mvp" (B,4,4), "img" (B,H,W,1) alpha} on ``device``."""
+                resolution: int = 512, edge_length: float = 0.03,
+                n_spheres: int = 1, subdivisions: int = 3):
+    """The benchmark scene of the repository as ``bench.py:67-106`` builds
+    it: one TetSphere ``tet_sphere(edge_length, radius=0.25)`` (0.03: 4,741
+    vertices, 26,426 tets, 2,012 faces), or with ``n_spheres`` > 1
+    bench.py's BENCH_SPHERES geometry (``multisphere_scene``'s), fitted to
+    the ellipsoid ``_ellipsoid_targets(n_views, subdivisions)`` rendered by
+    ``render_views_of_mesh``. Returns (geometry, batch) on ``device``,
+    batch = {"mvp" (B,4,4), "mv" (B,4,4), "campos" (B,3), "img" (B,H,W,4)
+    RGBA, "background" (B,H,W,3) ones, "n" (B,H,W,4) zeros, "d" (B,H,W,1)
+    depth}: the geometry stage reads the alpha (the last channel), the
+    texture stage the RGB and the background."""
     dev = resolve_device(device)
-    v, t = tet_sphere(edge_length, radius=0.25)
-    geo = TetMeshGeometry(dict(use_smooth_barrier=True),
-                          tetmesh=TetMesh(v, t), device=dev)
-    sv, sf, mvp, _ = _ellipsoid_targets(n_views)
-    batch = {"mvp": torch.tensor(mvp, dtype=torch.float32, device=dev),
-             "img": render_alpha_of_mesh(sv, sf, mvp, resolution, device=dev)}
-    return geo, batch
+    if n_spheres > 1:
+        geo = _multisphere_geometry(n_spheres, dev)
+    else:
+        v, t = tet_sphere(edge_length, radius=0.25)
+        geo = TetMeshGeometry(dict(use_smooth_barrier=True),
+                              tetmesh=TetMesh(v, t), device=dev)
+    sv, sf, mvp, mv, campos = _ellipsoid_targets(n_views, subdivisions)
+    rgba, depth, _ = render_views_of_mesh(sv, sf, mvp, campos, resolution,
+                                          device=dev)
+
+    def on_dev(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+    shape = (n_views, int(resolution), int(resolution))
+    return geo, {"mvp": on_dev(mvp), "mv": on_dev(mv),
+                 "campos": on_dev(campos), "img": on_dev(rgba),
+                 "background": torch.ones(shape + (3,), device=dev),
+                 "n": torch.zeros(shape + (4,), device=dev),
+                 "d": on_dev(depth[..., None])}
 
 
 def write_multisphere_key_points(path: str, n_spheres: int = 18) -> None:
@@ -220,6 +238,19 @@ def write_multisphere_key_points(path: str, n_spheres: int = 18) -> None:
     _, _, centers = fibonacci_views(n_spheres, radius=0.18)
     with open(path, "w") as fh:
         json.dump({"pt": centers.tolist(), "r": [0.16] * n_spheres}, fh)
+
+
+def _multisphere_geometry(n_spheres: int, dev: torch.device):
+    """``TetMeshMultiSphereGeometry`` init path A on the key points of
+    ``write_multisphere_key_points``, its files in a temporary
+    directory."""
+    with tempfile.TemporaryDirectory(prefix="tss_spheres_") as tmp:
+        kp = os.path.join(tmp, "kp.json")
+        write_multisphere_key_points(kp, n_spheres)
+        return TetMeshMultiSphereGeometry(dict(
+            use_smooth_barrier=True, key_points_file_path=kp,
+            tetwild_cache_folder=os.path.join(tmp, "cache"),
+            output_path=tmp), device=dev)
 
 
 def multisphere_scene(device: DeviceLike = None, n_spheres: int = 18,
@@ -235,14 +266,8 @@ def multisphere_scene(device: DeviceLike = None, n_spheres: int = 18,
     directory. Returns (geometry, batch) with batch = {"mvp", "campos"
     (B,3), "img" (B,H,W,1) alpha, "d" (B,H,W,1) depth, "n" (B,H,W,3)}."""
     dev = resolve_device(device)
-    with tempfile.TemporaryDirectory(prefix="tss_spheres_") as tmp:
-        kp = os.path.join(tmp, "kp.json")
-        write_multisphere_key_points(kp, n_spheres)
-        geo = TetMeshMultiSphereGeometry(dict(
-            use_smooth_barrier=True, key_points_file_path=kp,
-            tetwild_cache_folder=os.path.join(tmp, "cache"),
-            output_path=tmp), device=dev)
-    sv, sf, mvp, campos = _ellipsoid_targets(n_views)
+    geo = _multisphere_geometry(n_spheres, dev)
+    sv, sf, mvp, _, campos = _ellipsoid_targets(n_views)
     rgba, depth, normal = render_views_of_mesh(sv, sf, mvp, campos,
                                                resolution, device=dev)
 
