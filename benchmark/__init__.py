@@ -1,0 +1,14 @@
+"""The benchmark of tssplat_torch, the PyTorch and CUDA port.
+
+One command runs one cell once and prints one JSON line:
+
+    python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+Cells are read from ``BENCHMARK.json`` at the root of the checkout; a
+cell's configuration from ``benchmark/configs/<config>.yaml``, its traffic
+from ``benchmark/traffic/<traffic>.yaml``, its correctness limits from
+``benchmark/limits/<cell>.yaml`` and each per-layer metric from
+``benchmark/metrics/<metric>.py``. Nothing here imports JAX or the JAX
+package; ``benchmark/reference`` imports nothing of the port.
+"""

@@ -1,0 +1,6 @@
+"""Device operations a step (kernels, memsets and copies) in the profiled
+stretch of the texture stage."""
+
+
+def read(ctx):
+    return len(ctx.trace.device) / ctx.steps
