@@ -128,6 +128,13 @@ NO_COUNTERPART = {
             "binned",
         "ARGS tssplat_tpu.render.pipeline.render_views: rast_ids": _VIS,
     },
+    "utils": {
+        f"{kind} tssplat_tpu.utils.{where}PrintExecTime":
+            "a printing timer that nothing called; the port's spans "
+            "(utils/profiling.py span) name the step's layers in the "
+            "profiler's trace"
+        for kind, where in (("EXPORT", ""), ("NAME", "profiling."))
+    },
     "train": {
         "ARGS tssplat_tpu.train.make_train_step: fitting_stage":
             "the stage follows from material_fn",

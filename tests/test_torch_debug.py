@@ -2,7 +2,7 @@
 debug.py, utils/profiling.py) beside the JAX package's (tests/
 test_debug.py): the anomaly gate in the geometry code, the NaN trap at the
 op (or kernel wrapper) that makes the first NaN, their scoping to a run,
-PrintExecTime's line and trace_profile's trace."""
+and trace_profile's trace."""
 
 import json
 import os
@@ -23,7 +23,7 @@ from tssplat_torch.mesh.spheres import tet_sphere
 from tssplat_torch.mesh.tetmesh import TetMesh
 from tssplat_torch.ops import raster_kernels as rk
 from tssplat_torch.ops.energy import build_energy_ops, smooth_barrier_energy
-from tssplat_torch.utils import PrintExecTime, debug, trace_profile
+from tssplat_torch.utils import debug, trace_profile
 
 torch.set_num_threads(1)
 
@@ -236,19 +236,6 @@ class _null:
 
     def __exit__(self, *exc):
         return False
-
-
-def test_print_exec_time(capsys):
-    """The same printout as the JAX package's: '[name] <ms> ms'; none when
-    disabled, and the seconds kept in elapsed."""
-    with PrintExecTime("block a") as t:
-        sum(range(1000))
-    out = capsys.readouterr().out
-    assert out.startswith("[block a] ") and out.endswith(" ms\n")
-    assert t.elapsed >= 0
-    with PrintExecTime("quiet", enabled=False) as t:
-        pass
-    assert capsys.readouterr().out == "" and t.elapsed >= 0
 
 
 def test_trace_profile_writes_a_chrome_trace(tmp_path):

@@ -275,6 +275,22 @@ def test_resume_matches_straight_run(two_views, capsys):
     assert np.abs(want.params.numpy() - rest).max() > 1e-4
 
 
+def test_profile_iters_writes_a_trace_of_the_spans(two_views):
+    """profile_iters [0, 2] on a two-iteration run writes one Chrome trace,
+    <output_path>/trace/trace_<pid>.json, holding each iteration's
+    tssplat.step span and its loader's."""
+    root = two_views
+    torch_train.train(ConfigDict(_two_view_cfg(root, "profiled", 2,
+                                               profile_iters=[0, 2])),
+                      device="cpu")
+    trace = root / "profiled" / "trace"
+    assert os.listdir(trace) == [f"trace_{os.getpid()}.json"]
+    with open(trace / f"trace_{os.getpid()}.json") as fh:
+        names = [e.get("name") for e in json.load(fh)["traceEvents"]]
+    assert names.count("tssplat.step") == 2
+    assert names.count("tssplat.loader") == 2
+
+
 def test_sigterm_checkpoints_and_resumes(two_views, capsys):
     """SIGTERM during train(cfg, device="cpu") in a subprocess: the running
     iteration finishes, a full-state checkpoint is written, the run stops

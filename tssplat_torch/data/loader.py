@@ -28,6 +28,7 @@ import torch
 from ..config import DATALOADERS, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..utils.env import get_rank
+from ..utils.profiling import span
 from .datasets import (ArrayDataset, BlenderImgDataset, MitsubaImgDataset,
                        Wonder3DImgDataset)
 
@@ -126,21 +127,22 @@ class ViewDataLoader:
         return np.asarray(self.batch_list[it][forward_id][r], np.int32)
 
     def __call__(self, it: int, forward_id: int, rank: Optional[int] = None):
-        ids = self.batch_indices(it, forward_id, rank)
-        idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
-        d = self.data_all
-        return {
-            "mv": d["mv"][idx],
-            "mvp": d["mvp"][idx],
-            "campos": d["campos"][idx],
-            "resolution": d["resolution"],
-            "spp": d["spp"],
-            "img": d["img"][idx],
-            "background": d["background"][idx],
-            "n": d["n"][idx],
-            "d": d["d"][idx],
-            "view_idx": idx.to(torch.int32),
-        }
+        with span("tssplat.loader"):
+            ids = self.batch_indices(it, forward_id, rank)
+            idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+            d = self.data_all
+            return {
+                "mv": d["mv"][idx],
+                "mvp": d["mvp"][idx],
+                "campos": d["campos"][idx],
+                "resolution": d["resolution"],
+                "spp": d["spp"],
+                "img": d["img"][idx],
+                "background": d["background"][idx],
+                "n": d["n"][idx],
+                "d": d["d"][idx],
+                "view_idx": idx.to(torch.int32),
+            }
 
 
 @DATALOADERS.register("MistubaImgDataLoader")      # sic — reference name

@@ -20,6 +20,7 @@ from ..config import GEOMETRIES, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..mesh.tetmesh import TetMesh
 from ..utils import debug
+from ..utils.profiling import span
 from ..ops.energy import (EnergyOps, build_energy_ops, smooth_barrier_energy,
                           energy_coeff_schedule, barrier_order)
 
@@ -48,10 +49,11 @@ def geometry_forward(tet_v: torch.Tensor, geom: GeometryStatics,
     barrier order switch, reference energies/smooth_barrier.py:47-63)."""
     v_pos = tet_v[geom.surface_vid]
     if geom.energy is not None:
-        c1, c2 = energy_coeff_schedule(it, geom.smooth_coeff,
-                                       geom.barrier_coeff)
-        order = barrier_order(it, geom.increase_order_iter)
-        e = smooth_barrier_energy(tet_v, geom.energy, c1, c2, order)
+        with span("tssplat.energy"):
+            c1, c2 = energy_coeff_schedule(it, geom.smooth_coeff,
+                                           geom.barrier_coeff)
+            order = barrier_order(it, geom.increase_order_iter)
+            e = smooth_barrier_energy(tet_v, geom.energy, c1, c2, order)
     else:
         e = torch.zeros((), dtype=tet_v.dtype, device=tet_v.device)
     return GeometryForwardData(v_pos=v_pos, t_pos_idx=geom.surface_fid,
@@ -88,8 +90,9 @@ def compute_vertex_normals(v_pos: torch.Tensor,
     v_nrm = (z.index_add(0, i0, fn) + z.index_add(0, i1, fn)
              + z.index_add(0, i2, fn))
     sq = torch.sum(v_nrm * v_nrm, dim=-1, keepdim=True)
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
-                      device=v_pos.device)
+    with span("tssplat.sync.normals"):       # a host-to-device copy
+        up = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
+                          device=v_pos.device)
     v_nrm = torch.where(sq > 1e-20, v_nrm, up)
     v_nrm = v_nrm / torch.linalg.norm(v_nrm, dim=-1, keepdim=True)
     debug.check_finite(v_nrm, "vertex_normals")   # ref :63-64 anomaly gate

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..ops.rasterize import antialias_color, interpolate, rasterize
 from ..ops.transform import transform_pos
+from ..utils.profiling import span
 from .explicit_material import contract_to_unisphere
 
 
@@ -129,8 +130,10 @@ def build_texture_exact_loss(material, statics, cache: dict):
     denom = float(cache["n_total"] * res * res * 3)
 
     def loss_fn(mat_params, it):
-        feats = enc_apply(mat_params["encoding"], xc, it)
-        colors = act(net_apply(mat_params["network"], feats))  # (n_fg,3)
+        with span("tssplat.encoding"):
+            feats = enc_apply(mat_params["encoding"], xc, it)
+        with span("tssplat.mlp"):
+            colors = act(net_apply(mat_params["network"], feats))  # (n_fg,3)
         full = colors.new_zeros((n * res * res, colors.shape[-1]))
         full = full.index_put((pix,), colors).view(n, res, res, -1)
         gb = bg + (full - bg) * mask

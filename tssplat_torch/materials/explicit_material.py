@@ -19,6 +19,7 @@ from ..config import MATERIALS, parse_structured
 from ..device import DeviceLike, resolve_device
 from ..models.networks import (get_activation, get_encoding, get_mlp,
                                scale_tensor)
+from ..utils.profiling import span
 from ..utils.tree import leaf_names, tree_leaves, tree_unflatten
 
 
@@ -85,10 +86,12 @@ class ExplicitMaterial:
         when the config enables it (the sampled texture loss passes
         them)."""
         x = contract_to_unisphere(positions, self.bbox)
-        feats = self.encoding.apply_fn(params["encoding"], x, step,
-                                       grad_u=grad_u, grad_gen=grad_gen)
-        return self.activation(self.network.apply_fn(params["network"],
-                                                      feats))
+        with span("tssplat.encoding"):
+            feats = self.encoding.apply_fn(params["encoding"], x, step,
+                                           grad_u=grad_u, grad_gen=grad_gen)
+        with span("tssplat.mlp"):
+            return self.activation(self.network.apply_fn(
+                params["network"], feats))
 
     def export(self, path: str, folder: str) -> None:
         """``<path>/<folder>/material.npz``, one array per leaf under the

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as tnf
 
 from ..device import DeviceLike, resolve_device
+from ..utils.profiling import span
 
 
 def get_activation(name) -> Callable:
@@ -137,7 +138,9 @@ def _grid_corners(x: torch.Tensor, res, dense, H):
     """Table rows (…,L,8) int64 and trilinear weights (…,L,8) of every
     (level, corner), corners in _CORNERS order; each level's eight corners
     in one pass of elementwise ops."""
-    corners = torch.as_tensor(_CORNERS, dtype=torch.int64, device=x.device)
+    with span("tssplat.sync.encoding"):      # a host-to-device copy
+        corners = torch.as_tensor(_CORNERS, dtype=torch.int64,
+                                  device=x.device)
     upper = corners.bool()                                  # (8,3)
     idx, wgt = [], []
     for l, r in enumerate(res):

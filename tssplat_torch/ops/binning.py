@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .screen import AREA_EPS, screen
 
 TILE_H = 16                  # K1's tiles
@@ -247,7 +248,8 @@ def _sorted_pairs(table, live, resolution, tile_h, tile_w, row0=0,
     live = (live & ~ex & ~ey).to(torch.int64)
     spanx = (tx1 - tx0 + 1) * live
     npair = (spanx * (ty1 - ty0 + 1) * live).reshape(-1)        # (B*F,)
-    total = int(npair.sum())                                    # host sync
+    with span("tssplat.sync.binning"):
+        total = int(npair.sum())                                # host sync
 
     src = torch.repeat_interleave(torch.arange(B * F, device=dev), npair,
                                   output_size=total)
@@ -258,7 +260,8 @@ def _sorted_pairs(table, live, resolution, tile_h, tile_w, row0=0,
         + tx0.reshape(-1)[src] + local % sx_src
     view, face = src // F, src % F
     code = torch.sort((view * ntiles + tile) * F + face).values
-    counts = torch.bincount(code // F, minlength=B * ntiles)
+    with span("tssplat.sync.bincount"):     # reads the codes' min and max
+        counts = torch.bincount(code // F, minlength=B * ntiles)
     return code % F, counts, nty, ntx
 
 
@@ -269,18 +272,19 @@ def bin_faces(pos_clip: torch.Tensor, edge_nbrs: Optional[torch.Tensor],
     uncapped lists). ``resolution`` is the (slab's) H x W; ``viewport``
     (row0, full_h) makes its rows absolute rows row0.. of a full_h-tall
     image. A slab of 8-aligned rows may end in a partial 16-row tile."""
-    B = pos_clip.shape[0]
-    row0, full_h = viewport if viewport is not None else (0, None)
-    table, ok, _ = face_table(pos_clip, edge_nbrs)
-    faces, counts, nty, ntx = _sorted_pairs(table, ok, resolution,
-                                            TILE_H, TILE_W, row0, full_h)
-    starts = torch.cumsum(counts, 0) - counts
-    return FaceBins(table=table, tile_start=starts.to(torch.int32),
-                    tile_count=counts.to(torch.int32),
-                    faces=faces.to(torch.int32),
-                    n_drop=torch.zeros(B, dtype=torch.int32,
-                                       device=pos_clip.device),
-                    nty=nty, ntx=ntx, row0=int(row0), full_h=full_h)
+    with span("tssplat.binning"):
+        B = pos_clip.shape[0]
+        row0, full_h = viewport if viewport is not None else (0, None)
+        table, ok, _ = face_table(pos_clip, edge_nbrs)
+        faces, counts, nty, ntx = _sorted_pairs(table, ok, resolution,
+                                                TILE_H, TILE_W, row0, full_h)
+        starts = torch.cumsum(counts, 0) - counts
+        return FaceBins(table=table, tile_start=starts.to(torch.int32),
+                        tile_count=counts.to(torch.int32),
+                        faces=faces.to(torch.int32),
+                        n_drop=torch.zeros(B, dtype=torch.int32,
+                                           device=pos_clip.device),
+                        nty=nty, ntx=ntx, row0=int(row0), full_h=full_h)
 
 
 @torch.no_grad()
@@ -293,29 +297,30 @@ def bin_faces_capped(pos_clip: torch.Tensor,
     binned when its three vertices are valid (JAX's predicate: a face of
     zero area still takes a slot; it covers no pixel). ``viewport`` as in
     ``bin_faces``; the tiles, and so the drops, are the slab's."""
-    H, W = resolution
-    if H % CAP_TILE_H or W % CAP_TILE_W:
-        raise ValueError(f"capped layout needs H % {CAP_TILE_H} == 0 and "
-                         f"W % {CAP_TILE_W} == 0, got {resolution}")
-    B = pos_clip.shape[0]
-    dev = pos_clip.device
-    row0, full_h = viewport if viewport is not None else (0, None)
-    table, _, valid = face_table(pos_clip, edge_nbrs)
-    F = table.shape[1]
-    faces, counts, nty, ntx = _sorted_pairs(table, valid, resolution,
-                                            CAP_TILE_H, CAP_TILE_W, row0,
-                                            full_h)
-    starts = torch.cumsum(counts, 0) - counts
-    kept = torch.clamp(counts, max=k)
-    n_drop = (counts - kept).view(B, nty * ntx).sum(dim=1)
-    j = torch.arange(k, device=dev)
-    if faces.numel():
-        idx = torch.clamp(starts[:, None] + j[None], max=faces.numel() - 1)
-        cand = torch.where(j[None] < kept[:, None], faces[idx], F)
-    else:
-        cand = torch.full((B * nty * ntx, k), F, dtype=torch.int64,
-                          device=dev)
-    return CappedBins(table=table, counts=kept.to(torch.int32),
-                      cand=cand.to(torch.int32).contiguous(),
-                      n_drop=n_drop.to(torch.int32), nty=nty, ntx=ntx,
-                      row0=int(row0), full_h=full_h)
+    with span("tssplat.binning"):
+        H, W = resolution
+        if H % CAP_TILE_H or W % CAP_TILE_W:
+            raise ValueError(f"capped layout needs H % {CAP_TILE_H} == 0 and "
+                             f"W % {CAP_TILE_W} == 0, got {resolution}")
+        B = pos_clip.shape[0]
+        dev = pos_clip.device
+        row0, full_h = viewport if viewport is not None else (0, None)
+        table, _, valid = face_table(pos_clip, edge_nbrs)
+        F = table.shape[1]
+        faces, counts, nty, ntx = _sorted_pairs(table, valid, resolution,
+                                                CAP_TILE_H, CAP_TILE_W, row0,
+                                                full_h)
+        starts = torch.cumsum(counts, 0) - counts
+        kept = torch.clamp(counts, max=k)
+        n_drop = (counts - kept).view(B, nty * ntx).sum(dim=1)
+        j = torch.arange(k, device=dev)
+        if faces.numel():
+            idx = torch.clamp(starts[:, None] + j[None], max=faces.numel() - 1)
+            cand = torch.where(j[None] < kept[:, None], faces[idx], F)
+        else:
+            cand = torch.full((B * nty * ntx, k), F, dtype=torch.int64,
+                              device=dev)
+        return CappedBins(table=table, counts=kept.to(torch.int32),
+                          cand=cand.to(torch.int32).contiguous(),
+                          n_drop=n_drop.to(torch.int32), nty=nty, ntx=ntx,
+                          row0=int(row0), full_h=full_h)

@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 from torch.nn.functional import pad as F_pad
 
+from ..utils.profiling import span
 from . import raster_kernels as rk
 from .binning import (bin_faces, bin_faces_capped, capacity,
                       uses_capped_layout)
@@ -133,9 +134,12 @@ class _RowGather(torch.autograd.Function):
         B, F, C = tbl.shape
         fg = ids > 0
         bidx = torch.arange(B, device=ids.device).view(B, 1, 1)
-        t = (bidx * F + ids.long() - 1)[fg]              # (n_fg,) one sync
+        # each boolean mask waits for the device to count its pixels
+        with span("tssplat.sync.row_gather"):
+            t = (bidx * F + ids.long() - 1)[fg]          # (n_fg,)
         out = tbl.new_zeros((*ids.shape, C))
-        out[fg] = tbl.reshape(B * F, C)[t]
+        with span("tssplat.sync.row_gather"):
+            out[fg] = tbl.reshape(B * F, C)[t]
         ctx.save_for_backward(fg, t)
         ctx.tbl_shape = tbl.shape
         return out
@@ -144,7 +148,9 @@ class _RowGather(torch.autograd.Function):
     def backward(ctx, ct):
         fg, t = ctx.saved_tensors
         B, F, C = ctx.tbl_shape
-        d = ct.new_zeros((B * F, C)).index_add_(0, t, ct[fg])
+        with span("tssplat.sync.row_gather"):
+            ct_fg = ct[fg]
+        d = ct.new_zeros((B * F, C)).index_add_(0, t, ct_fg)
         return d.view(B, F, C), None
 
 
@@ -201,7 +207,7 @@ def silhouette_visibility(pos_clip: torch.Tensor, edge_nbrs: torch.Tensor,
     H, W = resolution
     cap, vp = _capacity_and_viewport(k, F, resolution, viewport)
     pos = pos_clip.detach()
-    with torch.no_grad():
+    with torch.no_grad(), span("tssplat.visibility"):
         if uses_capped_layout(F, 14, B, H, W):
             bins = bin_faces_capped(pos, edge_nbrs, resolution, cap, vp)
             ids, z, g6k, gaux = rk.visibility_capped(bins, resolution)
@@ -274,7 +280,7 @@ def visibility_ids(pos_clip: torch.Tensor, resolution: Tuple[int, int],
     H, W = resolution
     cap, vp = _capacity_and_viewport(k, F, resolution, viewport)
     pos = pos_clip.detach()
-    with torch.no_grad():
+    with torch.no_grad(), span("tssplat.visibility"):
         if uses_capped_layout(F, 11, B, H, W):
             bins = bin_faces_capped(pos, None, resolution, cap, vp)
             ids, _ = rk.visibility_capped_ids(bins, resolution)
@@ -469,6 +475,11 @@ def antialias_color(color: torch.Tensor, rast: torch.Tensor,
     the face table by K3. The pairs run as plain PyTorch, as JAX runs them
     outside any Pallas kernel, and the deltas are added in JAX's order:
     horizontal a, b, then vertical a, b."""
+    with span("tssplat.antialias_color"):
+        return _antialias_color(color, rast, pos_clip, edge_nbrs)
+
+
+def _antialias_color(color, rast, pos_clip, edge_nbrs):
     B, H, W, C = color.shape
     tbl6 = screen_xy_table(pos_clip, edge_nbrs.shape[0])
     ids, z, rows6, gaux = antialias_rows(rast, tbl6, edge_nbrs)

@@ -21,6 +21,7 @@ from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -65,8 +66,10 @@ def adam(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
                       grads)
         count = state.count + 1
         n = count.to(torch.float32)
-        c1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), n)
-        c2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), n)
+        # each host-to-device copy of a constant waits for the device
+        with span("tssplat.sync.optim"):
+            c1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), n)
+            c2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), n)
         lr = learning_rate(state.count) if callable(learning_rate) \
             else torch.tensor(learning_rate, device=dev)
         updates = tree_map(

@@ -28,6 +28,7 @@ from typing import Any, Callable, NamedTuple, Sequence, Union
 
 import torch
 
+from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -86,8 +87,10 @@ def adam_uniform(learning_rate: ScheduleOrFloat = 0.1,
         dev = leaves[0].device
         step = state.count + 1
         stepf = step.to(torch.float32)
-        b1c = 1.0 - torch.pow(torch.tensor(b1, device=dev), stepf)
-        b2c = 1.0 - torch.pow(torch.tensor(b2, device=dev), stepf)
+        # each host-to-device copy of a constant waits for the device
+        with span("tssplat.sync.optim"):
+            b1c = 1.0 - torch.pow(torch.tensor(b1, device=dev), stepf)
+            b2c = 1.0 - torch.pow(torch.tensor(b2, device=dev), stepf)
         g1 = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state.g1, grads)
         g2 = tree_map(lambda v, g: b2 * v + (1.0 - b2) * g * g, state.g2,
                       grads)
@@ -99,12 +102,16 @@ def adam_uniform(learning_rate: ScheduleOrFloat = 0.1,
         limit_ptr = state.limit_ptr
         cap = None
         if grad_limit:
-            vals = torch.tensor(values, device=dev)
-            cap = vals[torch.clamp_max(state.limit_ptr, len(values) - 1)]
+            # indexing by a 0-dim tensor reads it on the host too
+            with span("tssplat.sync.optim"):
+                vals = torch.tensor(values, device=dev)
+                cap = vals[torch.clamp_max(state.limit_ptr,
+                                           len(values) - 1)]
             if iters:
-                its = torch.tensor(iters, dtype=torch.int32, device=dev)
-                reached = state.cc >= its[torch.clamp_max(state.limit_ptr,
-                                                          len(iters) - 1)]
+                with span("tssplat.sync.optim"):
+                    its = torch.tensor(iters, dtype=torch.int32, device=dev)
+                    reached = state.cc >= its[torch.clamp_max(
+                        state.limit_ptr, len(iters) - 1)]
                 advance = (state.limit_ptr < len(iters)) & reached
                 limit_ptr = state.limit_ptr + advance.to(torch.int32)
 

@@ -34,6 +34,7 @@ from ..ops.rasterize import (antialias, antialias_color,
                              rasterize_silhouette_with_rows,
                              silhouette_visibility, visibility_ids)
 from ..ops.transform import transform_pos
+from ..utils.profiling import span
 
 
 class RenderOutput(NamedTuple):
@@ -153,8 +154,10 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
         tri = fwd.t_pos_idx
         v_nrm = compute_vertex_normals(fwd.v_pos, tri)
         if normal_flip_z:      # Wonder3D/GSO convention (reference :141-144)
-            v_nrm = v_nrm * torch.tensor([1.0, 1.0, -1.0], dtype=v_nrm.dtype,
-                                         device=v_nrm.device)
+            with span("tssplat.sync.normals"):   # a host-to-device copy
+                flip = torch.tensor([1.0, 1.0, -1.0], dtype=v_nrm.dtype,
+                                    device=v_nrm.device)
+            v_nrm = v_nrm * flip
         normal = interpolate(v_nrm[tri.reshape(-1)], rast)
     if fit_depth:
         if campos is None:

@@ -9,20 +9,16 @@
 On the benchmark scene (tools/synthetic.py bench_scene, AdamUniform) or
 the 18-sphere scene (multisphere_scene with the validated per-tile
 capacity; AdamUniform, or Adam lr 2e-3 with --depth-normal, which adds the
-depth and normal losses) it prints, as one JSON line each (``--layout
-flat`` keeps K1's uncapped lists where the rule would cap, to time both
-visibility paths in the same step on the same scene; ``--view-chunk N``
-runs the train step in chunks of N views, as the driver does at 120
-views):
-  - "layer": each layer of the step run alone, median device-synchronised
-    wall time of 10 calls (energy fwd+bwd, clip transform, binning, the
-    visibility kernel of the path (K1, K2a or K2b), the rest of the
-    render's forward and backward (silhouette: winner rows + K4 + loss
-    backward = K5 + K3 + table autograd; depth + normal: the whole loss and
-    gradient), the optimizer update) and the whole step;
-  - "profile": torch.profiler over 5 steps — the step's wall time, the
-    device's busy time (sum of kernel times on the one stream) and idle
-    share, and the top kernels by device time.
+depth and normal losses) it prints one "profile" JSON line: torch.profiler
+over 5 steps — the step's wall time, the device's busy time (sum of kernel
+times on the one stream) and idle share, and the top kernels by device
+time (``--layout flat`` keeps K1's uncapped lists where the rule would
+cap, to time both visibility paths in the same step on the same scene;
+``--view-chunk N`` runs the train step in chunks of N views, as the driver
+does at 120 views). The geometry step's layers are the program's
+``tssplat.*`` spans: a trace of the driver's run (``profile_iters``) or the
+benchmark's per-layer metrics split its time by layer where the host
+holds the device back, which a layer timed alone cannot show.
 With ``--texture`` the step is the texture stage's at gso.yaml's width
 (the 18-sphere scene, ``--views`` views, ExplicitMaterial's default 16 x
 2^19 hash grid and 32-64-3 MLP, AdamUniform as gso.yaml sets it, the
@@ -46,16 +42,10 @@ import torch
 
 from ..materials.explicit_material import contract_to_unisphere as contract
 from ..ops import binning, raster_kernels as rk
-from ..ops.binning import (bin_faces, bin_faces_capped, capacity,
-                           uses_capped_layout)
-from ..ops.energy import smooth_barrier_energy
-from ..ops.rasterize import (antialias_silhouette, screen_xy_table,
-                             winner_screen_rows)
-from ..ops.transform import transform_pos
+from ..ops.binning import uses_capped_layout
 from ..optim import (adam, adam_uniform, cosine_annealing_lr,
                      cosine_decay_schedule)
-from ..train import (init_train_state, loss_and_grad, make_train_step,
-                     validated_tile_k)
+from ..train import init_train_state, make_train_step, validated_tile_k
 from .synthetic import bench_scene, multisphere_scene
 
 
@@ -111,59 +101,11 @@ def main(argv=None):
     step = make_train_step(st, update_fn, resolution=args.res, tile_k=k,
                            view_chunk=args.view_chunk, **fit)
     state = init_train_state(geo.tet_v, init_fn)
-
-    x = geo.tet_v.detach().requires_grad_(True)
-    pos = transform_pos(batch["mvp"], x[st.corner_vid])
-    nbrs = None if dn else st.edge_nbrs
-    capped = uses_capped_layout(F, 11 if dn else 14, args.views, *res)
-    if capped:
-        def bin_step():
-            return bin_faces_capped(pos.detach(), nbrs, res,
-                                    capacity(k, F, res))
-        vis_name, vis = (("K2a_visibility_capped_ids",
-                          rk.visibility_capped_ids) if dn else
-                         ("K2b_visibility_capped", rk.visibility_capped))
+    if uses_capped_layout(F, 11 if dn else 14, args.views, *res):
+        vis_name = "K2a_visibility_capped_ids" if dn else \
+            "K2b_visibility_capped"
     else:
-        def bin_step():
-            return bin_faces(pos.detach(), nbrs, res)
         vis_name = "K1_visibility"
-
-        def vis(b, r):
-            return rk.visibility(b, r, emit_g=not dn)
-    bins = bin_step()
-    vis_out = vis(bins, res)
-
-    def energy():
-        xe = geo.tet_v.detach().requires_grad_(True)
-        smooth_barrier_energy(xe, st.energy, 2e-4, 2e-4, 2).backward()
-
-    def aa_fwd_bwd():
-        ids, z, g6k, gaux = vis_out
-        g6 = winner_screen_rows(screen_xy_table(pos, F), ids, g6k)
-        alpha = antialias_silhouette(ids, z, g6, gaux)
-        loss = torch.mean((alpha - batch["img"][..., -1]) ** 2) * 2000.0
-        torch.autograd.grad(loss, x, retain_graph=True)
-
-    def update():
-        update_fn(state.params * 1e-3, state.opt_state)
-
-    layers = {
-        "energy_fwd_bwd": energy,
-        "transform": lambda: transform_pos(batch["mvp"],
-                                           geo.tet_v[st.corner_vid]),
-        "binning": bin_step,
-        vis_name: lambda: vis(bins, res),
-    }
-    if dn:
-        layers["loss_and_grad_depth_normal"] = lambda: loss_and_grad(
-            st, geo.tet_v, batch, 0, args.res, tile_k=k,
-            view_chunk=args.view_chunk, **fit)
-    else:
-        layers["rows_K4_loss_bwd_K5_K3"] = aa_fwd_bwd
-    layers["optimizer_update"] = update
-    for name, fn in layers.items():
-        print(json.dumps({"layer": name, "ms": _wall_ms(fn)}), flush=True)
-
     it = [0]
 
     def one_step():
@@ -171,9 +113,8 @@ def main(argv=None):
         state, _ = step(state, batch, it[0])
         it[0] += 1
 
-    print(json.dumps({"layer": "train_step", "ms": _wall_ms(one_step)}),
-          flush=True)
-
+    for _ in range(2):              # warm every shape the profile runs
+        one_step()
     wall, busy_ms, kernels = _profile(one_step)
     print(json.dumps({
         "profile": "train_step", "scene": args.scene, "depth_normal": dn,
@@ -198,7 +139,10 @@ def _profile(one_step, steps: int = 5):
     busy = 0.0
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total", 0.0)
-        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # the program's spans carry the device time of the kernels inside
+        # them: a kernel's time is counted on the kernel alone
+        if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA \
+                and not evt.key.startswith("tssplat."):
             busy += dev_us
             kernels.append((dev_us, evt.key, evt.count))
     kernels.sort(reverse=True)

@@ -52,6 +52,7 @@ alone writes exports and checkpoints.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import time
@@ -85,7 +86,7 @@ from .utils import debug
 from .utils.checkpoint import (latest_checkpoint_step, restore_checkpoint,
                                save_checkpoint)
 from .utils.env import get_rank, get_world_size, init_distributed
-from .utils.profiling import ThroughputMeter
+from .utils.profiling import ThroughputMeter, span, trace_profile
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -186,8 +187,10 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
         no_energy = statics._replace(energy=None)
 
         def chunk_loss(x, cb, vis):
-            il, _, nd = _img_loss(no_energy, x, cb, it, *opts, vis=vis,
-                                  **mat)
+            # runs again in the backward, where the checkpoint recomputes it
+            with span("tssplat.render"):
+                il, _, nd = _img_loss(no_energy, x, cb, it, *opts, vis=vis,
+                                      **mat)
             return il, nd
 
         total = n_drop = None
@@ -206,10 +209,12 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
         img_loss = total / (B // view_chunk)
         reg = geometry_forward(x, statics, it).energy
     else:
-        img_loss, reg, n_drop = _img_loss(statics, x, batch, it, *opts,
-                                          **mat)
+        with span("tssplat.render"):
+            img_loss, reg, n_drop = _img_loss(statics, x, batch, it, *opts,
+                                              **mat)
     loss = img_loss * 100.0 + reg
-    grads = torch.autograd.grad(loss, wrt)
+    with span("tssplat.backward"):
+        grads = torch.autograd.grad(loss, wrt)
     grad = tree_unflatten(params, list(grads)) if texture else grads[0]
     return loss.detach(), img_loss.detach(), reg.detach(), n_drop, grad
 
@@ -366,7 +371,8 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                 cache=texture_cache, statics=statics, tet_v=tet_v_frozen,
                 resolution=resolution, is_ortho=is_ortho, tile_k=tile_k)
         loss = il * 100.0
-        grads = torch.autograd.grad(loss, tree_leaves(x))
+        with span("tssplat.backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(x))
         zero = torch.zeros((), dtype=torch.int64, device=loss.device)
         return (loss.detach(), il.detach(), reg, zero,
                 tree_unflatten(x, list(grads)))
@@ -377,10 +383,15 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
             x, statics, batch, it, *spatial, resolution, is_ortho=is_ortho,
             tile_k=tile_k, fit_depth=fit_depth, fit_normal=fit_normal,
             normal_weight=normal_weight)
-        grad, = torch.autograd.grad(loss, [x])
+        with span("tssplat.backward"):
+            grad, = torch.autograd.grad(loss, [x])
         return loss.detach(), il.detach(), rg.detach(), nd, grad
 
     def step(state: TrainState, batch: dict, it: int):
+        with span("tssplat.step"):
+            return _step(state, batch, it)
+
+    def _step(state: TrainState, batch: dict, it: int):
         if spatial is not None:
             loss, img_loss, reg, n_drop, grads = spatial_grads(
                 state.params, it, batch)
@@ -401,16 +412,16 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                 tree_leaves(grads), img_loss, reg, n_drop, sync)
             grads = tree_unflatten(grads, leaves)
             loss = img_loss * 100.0 + reg
-        with torch.no_grad():
+        with torch.no_grad(), span("tssplat.optim"):
             updates, opt_state = update_fn(grads, state.opt_state)
             params = apply_updates(state.params, updates)
             better = loss < state.best_loss
+            with span("tssplat.sync.optim"):
+                it_t = torch.tensor(it, dtype=torch.int32, device=loss.device)
             new_state = TrainState(
                 params=params, opt_state=opt_state,
                 best_loss=torch.where(better, loss, state.best_loss),
-                best_iter=torch.where(better, torch.tensor(
-                    it, dtype=torch.int32, device=loss.device),
-                    state.best_iter),
+                best_iter=torch.where(better, it_t, state.best_iter),
                 best_params=tree_map(lambda c, b: torch.where(better, c, b),
                                      params, state.best_params))
         return new_state, (loss, img_loss, reg, n_drop)
@@ -776,6 +787,11 @@ def _train(cfg, dev: torch.device):
 
     remesh_every = int(cfg.get("remesh_every", 0) or 0)
     perm_gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    # profile_iters [start, stop]: iterations start..stop-1 under
+    # torch.profiler, the spans included, into <output_path>/trace/
+    prof_start, prof_stop = (int(i) for i in cfg.get("profile_iters")
+                             or (0, 0))
+    capture = contextlib.ExitStack()
     t0 = time.time()
     n_steps = 0
     try:
@@ -786,6 +802,9 @@ def _train(cfg, dev: torch.device):
                     print(f"preempted: checkpoint written at iter {it - 1} "
                           f"(resume with resume=true)", flush=True)
                 break
+            if it == max(prof_start, start_iter) and it < prof_stop:
+                capture.enter_context(trace_profile(
+                    os.path.join(out_path, "trace")))
 
             # periodic remeshing (train.py:738-756): the deformed volume
             # re-tetrahedralised; the optimizer, the best snapshot, the
@@ -866,7 +885,10 @@ def _train(cfg, dev: torch.device):
                     if verbose:
                         _dump_images(out_path, it, state, dataloader,
                                      geometry, resolution)
+            if it == prof_stop - 1:
+                capture.close()
     finally:
+        capture.close()
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
 

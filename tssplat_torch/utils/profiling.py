@@ -1,12 +1,13 @@
 """Tracing and profiling utilities (port of
 ``tssplat_tpu/utils/profiling.py``).
 
-The reference ships a timing helper that was never wired into its trainer
-(reference utils/config.py:49-95, PrintExecTime and a timestamp stack);
-``PrintExecTime`` keeps its shape. ``trace_profile`` captures a
+``span`` names a stretch of the program (a layer of the train step, or a
+statement where the host waits for the device) in the profiler's own
+trace, only while a profiler records. ``trace_profile`` captures a
 ``torch.profiler`` trace (CPU and, where there is one, CUDA activity) into
-``log_dir`` as a Chrome trace. ``ThroughputMeter`` is the driver's iters/s
-and rays/s counter.
+``log_dir`` as a Chrome trace; the spans land in it on the same clock as
+the CUDA runtime calls and the device's kernels. ``ThroughputMeter`` is
+the driver's iters/s and rays/s counter.
 """
 
 from __future__ import annotations
@@ -17,28 +18,24 @@ import time
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
+
+_NO_SPAN = contextlib.nullcontext()
 
 
-class PrintExecTime:
-    """Scoped wall-clock timer: ``with PrintExecTime("name"):`` prints
-    ``[name] <ms> ms`` on exit when enabled (reference utils/config.py:
-    49-64); the seconds stay in ``elapsed``."""
-
-    enabled = True
-
-    def __init__(self, name: str = "block", enabled: Optional[bool] = None):
-        self.name = name
-        self._enabled = PrintExecTime.enabled if enabled is None else enabled
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self.t0
-        if self._enabled:
-            print(f"[{self.name}] {self.elapsed * 1000:.1f} ms", flush=True)
-        return False
+def span(name: str):
+    """``with span("tssplat.<layer>"):`` records the block as a
+    ``user_annotation`` range of the running profiler's trace
+    (``torch.profiler.record_function``), and does nothing when no
+    profiler records: one check of ``torch.autograd._profiler_enabled()``
+    a span. The profiler's state reaches autograd's device threads, so a
+    span in a backward (a checkpointed chunk's recompute, a custom
+    Function's backward) lands in the trace too. Names start with
+    ``tssplat.``; ``tssplat.sync.<site>`` marks a statement that waits for
+    the device."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -58,6 +55,8 @@ def trace_profile(log_dir: str, enabled: bool = True):
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=acts) as prof:
         yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()      # the block's kernels in the trace
     prof.export_chrome_trace(os.path.join(log_dir,
                                           f"trace_{os.getpid()}.json"))
 
