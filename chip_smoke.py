@@ -53,6 +53,15 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                the silhouette step's inputs (K2b's outputs) and on the depth
                + normal step's (the shaded winners' rows), and K3 on K5's
                d g6 there, as in phase 3
+  6c. the kernels at gso.yaml's shape: the 18-sphere scene at 120 views
+               of 512² in one batch, binned as the unchunked step bins them
+               (the capped layout the step takes at B = 120, the validated
+               capacity): K2b and K2a against the walk (ids and z to the
+               bit, rows equal), K4 and K5 on the silhouette step's and the
+               depth + normal step's inputs equal to their plain versions,
+               K3 on K5's d g6 within its rows' tolerance; each timed as in
+               phase 3 (K2b / K2a's plain time is the boxed form's), with
+               its bound, into the kernel's ``gso_120v`` entry by path
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
@@ -66,22 +75,31 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                through tssplat_torch.train.main, in process, at the config's
                120 views of 512²: the ellipsoid's dataset written by the
                port's write_synthetic_dataset into a temporary directory, the
-               18 spheres of multisphere_scene as key points. (a) gso.yaml as
-               shipped (AdamUniform lr 0.2, batch 120, view_chunk auto = 8)
-               for 24 iterations, logging every 4, exporting and
+               18 spheres of multisphere_scene as key points. (a) gso.yaml
+               (AdamUniform lr 0.2, batch 120) in the JAX package's chunks
+               (view_chunk=8) for 24 iterations, logging every 4, exporting and
                checkpointing every 12: the exports of iterations 0 and 12 and
                final/ (with final_vtx.npy / final_elem.npy), no n_drop
                warning, img_loss falling, K2b / K3 / K4 / K5 launched 15 / 15
                / 30 / 15 times an iteration (K4 again in each chunk's
-               recomputation, visibility never); (b) the same unchunked
-               (view_chunk=0) for 8 iterations: its iteration-0 img_loss
-               that of (a) (rtol 1e-5 of the logged value), each kernel once
-               an iteration; (c) the normal loss (K2a, 15 times an
-               iteration) and the depth loss from iteration 4 with Adam lr
-               2e-3 for 12 iterations: the step rebuilt there, finite
-               losses. (b) and (c) load (a)'s
-               sphere meshes (init path B). One line per run: the driver's
-               it/s, peak device memory, launches an iteration, seconds
+               recomputation, visibility never); (b) gso.yaml as shipped
+               (view_chunk auto: one batch on the card) for 8 iterations: no
+               chunks, its iteration-0 img_loss that of (a) (rtol 1e-5 of
+               the logged value), each kernel once an iteration; (c) the
+               normal loss (K2a) and the depth loss from iteration 4 with
+               Adam lr 2e-3 for 12 iterations in chunks of 8 (view_chunk=8:
+               K2a, K3, K5 15 and K4 30 times an iteration): the step
+               rebuilt there, finite losses; (c2) the same as shipped
+               (view_chunk auto: one batch on the card, each kernel once an
+               iteration), its iteration-0 img_loss that of (c) (rtol
+               1e-5); (b), (c) and (c2) load (a)'s sphere meshes (init path
+               B). One line per run: the driver's it/s, peak device memory,
+               launches an iteration, seconds. (d) the auto rule's bytes
+               (``rule_memory_phase``): tools/view_memory.py's peak per
+               view-pixel of the unchunked silhouette, depth + normal and
+               dense colour texture steps on the 18-sphere bench scene at
+               120 views of 512², at its validated capacity and at
+               next_pow2(F), each within what train.py's rule counts there
  11. texture — the texture stage through the same main() on (a)'s final/
                meshes (init path C): gso.yaml plus fitting_stage=texture
                material_type=ExplicitMaterial (the default 16 x 2^19 hash
@@ -118,10 +136,11 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                remesh line, no warning, img_loss falling in each
                12-iteration segment, the same launches in every iteration
                of a segment and none outside the steps, final/'s per-sphere
-               artifacts partitioning final.veg; one 8-view chunk of
+               artifacts partitioning final.veg; one chunk of the views of
                iteration 11 and of iteration 12 (the first on the new
-               topology) in the driver's layout and tile capacity: K1 or
-               K2b, K4, K5 and K3 against their plain versions; the
+               topology; all 120 where the step has no chunks) at the
+               driver's tile capacity, in the layout the step takes there:
+               K1 or K2b, K4, K5 and K3 against their plain versions; the
                visibility kernel and the launches an iteration before and
                after the remesh, the remesh's seconds (its distance
                queries and sliver repair apart), it/s and peak memory; (d)
@@ -153,9 +172,10 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                started by tools/run_ranks.py under a deadline each, run
                gso.yaml through main() for 4 iterations on phase 10's
                dataset and sphere meshes: (b) view parallelism over 2 ranks
-               (10 chunks of 12, each rank 6 of every chunk: K2b, K3, K5 10
-               and K4 20 times an iteration per rank), best loss within rtol
-               1e-4 and tet_v within 2e-6 of one process unchunked; (c)
+               (view_chunk=12: 10 chunks of 12, each rank 6 of every chunk:
+               K2b, K3, K5 10 and K4 20 times an iteration per rank), best
+               loss within rtol 1e-4 and tet_v within 2e-6 of one process
+               unchunked; (c)
                spatial=2 over 2 ranks and spatial=3 over 3: every
                iteration's loss within rtol 1e-5 and tet_v within 1e-6;
                (d) data.world_size=2 with batch 60 (each rank its slice) at
@@ -163,7 +183,12 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                the same two halves (view_chunk=60; that process's distance
                from the unchunked one printed beside it, with the tet_v row
                that moves most, the step it leaves, and that step's pixels
-               and gradient under each change apart); (e) the texture
+               and gradient under each change apart); (b2) (b) with
+               view_chunk auto, as shipped (the chunk of the ranks' least
+               free memory: on the card one batch, each rank one half of
+               the views, each kernel once an iteration a rank) at (b)'s
+               tolerances against (d)'s reference, one process summing the
+               batch in the same halves; (e) the texture
                stage's exact path view-sharded over 2
                ranks on phase 10's final/ (60 views cached a rank): every
                iteration's loss within rtol 1e-5 of one process. Every
@@ -206,7 +231,8 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                and faces (18 cones of 1,280), the layout its faces take (K1
                or K2b), the driver's line (it/s, peak memory, launches an
                iteration), img_loss falling, the launches the layout rule
-               predicts; then one 8-view chunk of the final geometry
+               predicts; then one chunk of the auto rule's views (all 120 on
+               the card) of the final geometry
                (``_check_chunk``): each kernel the run launched against its
                plain version
  16. bench (``bench_phase``, after 12): ``python -m tssplat_torch.bench``
@@ -214,7 +240,7 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                (a) BENCH_SMOKE=1 (the six kernels against their plain
                versions on 2 views of 128²), (b) the bench scene (8 views
                of 512²), (c) BENCH_SPHERES=18, (d) BENCH_VIEWS=120
-               BENCH_SPHERES=18 (gso.yaml's width; chunks of 8), (e)
+               BENCH_SPHERES=18 (gso.yaml's width; one batch), (e)
                BENCH_STAGE=texture, the exact path and BENCH_TEX_SAMPLE=4096,
                (f) BENCH_SCALING=1; then (g) ``python -m
                tssplat_torch.tools.trace capture`` and ``top`` on the bench
@@ -224,7 +250,7 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                timed window); the lines, the bench's stderr and (b)'s rate
                against phase 4's are printed
 The launch counts are zeroed just before each main-path phase (4, 7, 8,
-10a-c, 11a-b, 12c, 13b-e, each run of 14, 15b, and in each bench process of
+10a-c2, 11a-b, 12c, 13b-e, each run of 14, 15b, and in each bench process of
 16 before its timed window) and read just after it. Then
 one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
 4, of K2b from 7, of K2a from 8; ``launches_texture`` from phase 11 (a);
@@ -232,7 +258,8 @@ one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
 ``launches_image_to_3d``, each run of 14; ``launches_tetwild``, 15 (b);
 ``launches_bench``, a step of each timed bench run of 16;
 ``viewport_max_err``, ``viewport_ms`` and ``viewport_bound_ms`` of 13 (a)
-for K1, K2a, K2b, K4 and K5), the nvidia-smi line, and as the last line
+for K1, K2a, K2b, K4 and K5; ``gso_120v`` of 6c for K2b, K2a, K3, K4 and
+K5), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Phases 14, 15 and 16 alone, from Python on
 the card: ``chip_smoke.image_to_3d_alone(smi)``,
 ``chip_smoke.tetwild_alone(smi)``, ``chip_smoke.bench_phase(smi)``.
@@ -253,6 +280,7 @@ import torch
 
 RES = 512
 N_VIEWS = 8
+GSO_VIEWS = 120          # configs/gso.yaml's batch
 
 
 def box_tests(table, faces, per_tile, nty, ntx, tile_h, tile_w, res):
@@ -663,6 +691,77 @@ def main():
         check_wsr(name, inp[0], dg6, Fm)
     del inp, dg6
 
+    # ---- 6c. the kernels at gso.yaml's shape: 120 views in one batch ------
+    t0 = time.perf_counter()
+    g_geo, g_batch = multisphere_scene(dev, 18, GSO_VIEWS, RES)
+    g_st, g_F = g_geo.statics, int(g_geo.statics.surface_fid.shape[0])
+    g_k = validated_tile_k(g_geo, g_batch, RES)
+    g_P = GSO_VIEWS * RES * RES
+    require(uses_capped_layout(g_F, 14, GSO_VIEWS, RES, RES)
+            and uses_capped_layout(g_F, 11, GSO_VIEWS, RES, RES),
+            "the step at 120 views does not take the capped layout")
+    with torch.no_grad():
+        pos = transform_pos(g_batch["mvp"], g_geo.tet_v[g_st.corner_vid])
+
+    def report_gso(name, path, err, ms, plain_ms, bnd):
+        r = next(r for r in results if r["name"] == name)
+        r.setdefault("gso_120v", {})[path] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+            bound_by=bnd[1])
+        print(f"[gso] {name} ({path}): max_err={err:.3g} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]}); "
+              f"{GSO_VIEWS}x{RES}^2, k {g_k}, on {smi}", flush=True)
+
+    for name, nbrs, fn, path, out_bytes in (
+            ("visibility_capped", g_st.edge_nbrs, rk.visibility_capped,
+             "silhouette", 48),
+            ("visibility_capped_ids", None, rk.visibility_capped_ids,
+             "depth_normal", 8)):
+        rows = nbrs is not None
+        cb = bin_faces_capped(pos, nbrs, res, g_k)
+        require(int(cb.n_drop.sum()) == 0, f"6c {name}: n_drop {cb.n_drop}")
+        got = fn(cb, res)
+        want = (rk.visibility_capped_plain if rows
+                else rk.visibility_capped_ids_plain)(cb, res)
+        require(torch.equal(got[0], want[0])
+                and torch.equal(bits(got[1]), bits(want[1]))
+                and all(torch.equal(a, b) for a, b in zip(got[2:], want[2:])),
+                f"6c {name}: differs from the walk")
+        sc = int(cb.counts.sum())
+        live = torch.arange(cb.cand.shape[1], device=dev)[None] \
+            < cb.counts[:, None]
+        tests = box_tests(cb.table, cb.cand[live], cb.counts, cb.nty, cb.ntx,
+                          CAP_TILE_H, CAP_TILE_W, res)
+        report_gso(name, path, max_err(got, want), cuda_ms(lambda: fn(cb, res)),
+                   cuda_ms(lambda: rk.visibility_capped_boxed_plain(
+                       cb, res, emit_g=rows), reps=3, warm=1),
+                   bound_ms(cb.table.numel() * 4 + sc * 4
+                            + cb.counts.numel() * 4 + out_bytes * g_P,
+                            30 * tests))
+        del cb, got, want, live
+    for name, inp in multisphere_aa_inputs(g_geo, g_batch, res,
+                                           g_k).items():
+        path = name.replace("multisphere_", "")
+        ct = torch.randn(inp[0].shape, generator=gen, device=dev)
+        dg6, errs, times, counts = check_aa(f"{GSO_VIEWS} views, {path}",
+                                            inp, ct)
+        report_gso("aa_forward", path, errs[0], times["K4_ms"],
+                   cuda_ms(lambda: rk.aa_forward_plain(*inp), reps=5, warm=1),
+                   counts["K4_bound"])
+        report_gso("aa_backward", path, errs[1], times["K5_ms"],
+                   cuda_ms(lambda: rk.aa_backward_plain(*inp, ct), reps=5,
+                           warm=1), counts["K5_bound"])
+        w_err = rows_agree(rk.wsr_table_grad(inp[0], dg6, g_F), inp[0], dg6,
+                           g_F)
+        w_times, w_counts = check_wsr(f"{GSO_VIEWS} views, {path}", inp[0],
+                                      dg6, g_F)
+        report_gso("wsr_table_grad", path, w_err, w_times["K3_ms"],
+                   cuda_ms(lambda: rk.wsr_table_grad_plain(inp[0], dg6, g_F),
+                           reps=5, warm=1), w_counts["K3_bound"])
+    del g_geo, g_batch, pos, inp, ct, dg6
+    torch.cuda.empty_cache()
+    print(f"[gso] phase 6c {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- 7/8. multi-sphere training: silhouette, then depth + normal ---------
     phases = (
         ("silhouette", "visibility_capped",
@@ -964,11 +1063,13 @@ def ranks_phase(smi, tmp, gso, base, geo_dir, views, timeout=300.0,
     B) and its final/ (the texture stage's geometry): gloo ranks sharing
     the one card, each started by tools/run_ranks.py under ``timeout``
     seconds; any rank's failure fails the phase. (b) view parallelism, 2
-    ranks; (c) spatial=2 over 2 ranks and spatial=3 over 3; (d) per-rank
-    slices (data.world_size=2, batch views / 2); (e) the exact texture path
+    ranks, in chunks of 12; (c) spatial=2 over 2 ranks and spatial=3 over
+    3; (d) per-rank slices (data.world_size=2, batch views / 2); (b2) view
+    parallelism with view_chunk auto; (e) the exact texture path
     view-sharded over 2 ranks. Each against one process of the same
-    iterations on the card ((d): summing the batch in the ranks' halves). ``device="cpu"`` rehearses it on the CPU
-    (where no kernel launches, so the launch checks are skipped)."""
+    iterations on the card ((d) and (b2): summing the batch in the ranks'
+    halves). ``device="cpu"`` rehearses it on the CPU (where no kernel
+    launches, so the launch checks are skipped)."""
     from tssplat_torch.tools.run_ranks import run_ranks, train_rank
     from tssplat_torch.utils.tree import tree_leaves
 
@@ -1046,8 +1147,9 @@ def ranks_phase(smi, tmp, gso, base, geo_dir, views, timeout=300.0,
                 f"{ref['best_loss']}")
         require(err <= atol, f"({label}): tet_v differs by {err}")
 
-    # (b) view parallelism: view_chunk auto = 10 chunks of 12, 6 a rank
-    res, p = ranks("b_view_dp", 2)
+    # (b) view parallelism: view_chunk=12 (JAX's pick for 2 devices) = 10
+    # chunks of 12, 6 a rank
+    res, p = ranks("b_view_dp", 2, "view_chunk=12")
     close("b_view_dp", res, p, 1e-4, 2e-6)
     want = dict(visibility_capped=10, wsr_table_grad=10, aa_forward=20,
                 aa_backward=10)
@@ -1073,6 +1175,19 @@ def ranks_phase(smi, tmp, gso, base, geo_dir, views, timeout=300.0,
                    f"data.batch_size={views // 2}", "data.rank=null")
     close("d_world_size", res, p, 1e-4, 2e-6, ref=halves,
           what="the batch in halves")
+    # (b2) view parallelism as shipped (view_chunk auto): every rank reads
+    # its own free memory and all take the chunks of the least; on the
+    # card one batch, each rank one half of the views (so (d)'s reference),
+    # each kernel once an iteration
+    res, p = ranks("b2_view_dp_auto", 2)
+    close("b2_view_dp_auto", res, p, 1e-4, 2e-6, ref=halves,
+          what="the batch in halves")
+    want = dict(visibility_capped=1, wsr_table_grad=1, aa_forward=1,
+                aa_backward=1)
+    for r in res:
+        got = {k: v / iters for k, v in r["launches"].items() if v}
+        require(device is not None or got == want,
+                f"(b2): launches an iteration {got}, expected {want}")
     # (e) the exact texture path, view-sharded
     tex = ["fitting_stage=texture", "material_type=ExplicitMaterial",
            f"geometry.initial_mesh_path={geo_dir}"]
@@ -1263,6 +1378,10 @@ def driver_phase(smi, views=120, res=512, device=None):
     gso = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
                        "gso.yaml")
     chunks = views // 8
+    # the chunks of view_chunk auto: none where the device's free memory
+    # holds the views at once (the card), JAX's chunks of 8 off CUDA
+    vc = tt._auto_view_chunk(views, 1, res, device=device)
+    auto_chunks = views // vc if vc else 1
     with tempfile.TemporaryDirectory(prefix="tss_driver_") as tmp:
         t0 = time.perf_counter()
         v, f = icosphere(subdivisions=3)
@@ -1280,16 +1399,17 @@ def driver_phase(smi, views=120, res=512, device=None):
 
         run = _make_runner(smi, tmp, base, views, res, device)
 
-        # (a) gso.yaml as shipped, 24 iterations: per chunk one K2b, K3
-        # and K5, and K4 twice (forward and recomputation)
+        # (a) gso.yaml in JAX's chunks of 8, 24 iterations: per chunk one
+        # K2b, K3 and K5, and K4 twice (forward and recomputation)
         log_a, out_a, text = run(
             "a_chunked", 24, dict(visibility_capped=24 * chunks,
                                   wsr_table_grad=24 * chunks,
                                   aa_forward=48 * chunks,
                                   aa_backward=24 * chunks),
-            "log_every=4", "export_every=12", "checkpoint_every=12")
+            "view_chunk=8", "log_every=4", "export_every=12",
+            "checkpoint_every=12")
         require(f"view microbatching: {chunks} chunks of 8 views" in text,
-                "(a): view_chunk auto did not pick chunks of 8")
+                "(a): view_chunk=8 did not run chunks of 8")
         require(log_a[-1][1] < log_a[0][1],
                 f"(a): img_loss did not fall {log_a}")
         final = set(os.listdir(f"{out_a}/final"))
@@ -1302,13 +1422,15 @@ def driver_phase(smi, views=120, res=512, device=None):
                      "ckpt/step_00000012.pt"):
             require(os.path.exists(f"{out_a}/{path}"), f"(a): no {path}")
 
-        # (b) unchunked, 8 iterations, on (a)'s sphere meshes
+        # (b) gso.yaml as shipped (view_chunk auto), 8 iterations, on (a)'s
+        # sphere meshes: the card's free memory holds the 120 views at once
         log_b, _, text = run(
             "b_unchunked", 8, dict(visibility_capped=8, wsr_table_grad=8,
                                    aa_forward=8, aa_backward=8),
-            "view_chunk=0", "log_every=4", "export_every=12",
+            "log_every=4", "export_every=12",
             "geometry.load_precomputed_tetwild_mesh=true")
-        require("view microbatching" not in text, "(b): chunked")
+        require("view microbatching" not in text,
+                "(b): view_chunk auto chunked 120 views of 512² on the card")
         require(math.isclose(log_b[0][1], log_a[0][1], rel_tol=1e-5),
                 f"(b): iteration-0 img_loss {log_b[0][1]} != (a)'s "
                 f"{log_a[0][1]}")
@@ -1324,20 +1446,39 @@ def driver_phase(smi, views=120, res=512, device=None):
             return make_step(*args, **kw)
 
         tt.make_train_step = spy
+        dn = ("fit_depth=true", "fit_depth_starting_iter=3",
+              "fit_normal=true", "optimizer.type=adam", "optimizer.lr=2e-3",
+              "resume=false", "log_every=1", "export_every=12",
+              "geometry.load_precomputed_tetwild_mesh=true")
         try:
-            log_c, _, _ = run(
-                "c_depth_normal", 12, dict(visibility_capped_ids=12 * chunks,
-                                           wsr_table_grad=12 * chunks,
-                                           aa_forward=24 * chunks,
-                                           aa_backward=12 * chunks),
-                "fit_depth=true", "fit_depth_starting_iter=3",
-                "fit_normal=true", "optimizer.type=adam", "optimizer.lr=2e-3",
-                "resume=false", "log_every=1", "export_every=12",
-                "geometry.load_precomputed_tetwild_mesh=true")
+            # in JAX's chunks of 8: K2a once a chunk, K4 again in each
+            # chunk's recomputation
+            log_c, _, text = run(
+                "c_depth_normal", 12, dict(
+                    visibility_capped_ids=12 * chunks,
+                    wsr_table_grad=12 * chunks, aa_forward=24 * chunks,
+                    aa_backward=12 * chunks), "view_chunk=8", *dn)
+            require(f"view microbatching: {chunks} chunks of 8 views"
+                    in text, "(c): view_chunk=8 did not run chunks of 8")
+            # (c2) as shipped (view_chunk auto): the auto rule's chunks,
+            # on the card one batch and no recomputation
+            log_c2, _, text = run(
+                "c2_depth_normal_auto", 12, dict(
+                    visibility_capped_ids=12 * auto_chunks,
+                    wsr_table_grad=12 * auto_chunks,
+                    aa_forward=(24 if auto_chunks > 1 else 12) * auto_chunks,
+                    aa_backward=12 * auto_chunks), *dn)
+            require(("view microbatching" in text) == (auto_chunks > 1),
+                    f"(c2): not the auto rule's {auto_chunks} chunks")
         finally:
             tt.make_train_step = make_step
-        require(built == [False, True], f"(c): steps built {built}")
-        require(len(log_c) == 12, f"(c): {len(log_c)} log lines")
+        require(built == [False, True] * 2, f"(c): steps built {built}")
+        for label, logged in (("c", log_c), ("c2", log_c2)):
+            require(len(logged) == 12, f"({label}): {len(logged)} log lines")
+        require(math.isclose(log_c2[0][1], log_c[0][1], rel_tol=1e-5),
+                f"(c2): iteration-0 img_loss {log_c2[0][1]} != (c)'s "
+                f"{log_c[0][1]}")
+        rule_memory_phase(smi)
 
         counts = texture_phase(smi, tmp, run, f"{out_a}/final", views,
                                device)
@@ -1346,6 +1487,36 @@ def driver_phase(smi, views=120, res=512, device=None):
         i3d = image_to_3d_phase(smi, tmp, run, views, res, device)
         tetwild = tetwild_phase(smi, tmp, run, views, res, device)
         return counts, i3d, tetwild
+
+
+def rule_memory_phase(smi, views=120, res=512):
+    """Phase 10 (d): tools/view_memory.py's readings of the unchunked
+    silhouette, depth + normal and dense colour texture steps on the
+    18-sphere bench scene at ``views`` views of res², at the scene's
+    validated capacity and at next_pow2(F), the largest the validator
+    returns: each peak per view-pixel within the bytes the chunk rule
+    counts there (train.py BYTES_PER_VIEW_PX and BYTES_PER_TILE_SLOT)."""
+    from tssplat_torch.tools import view_memory as vm
+    from tssplat_torch.tools.synthetic import bench_scene
+
+    t0 = time.perf_counter()
+    geo, batch = bench_scene(torch.device("cuda"), views, res, n_spheres=18)
+    for k in vm.capacities(geo, batch, res):
+        for path in vm.PATHS:
+            got = vm.measure(path, geo, batch, res, k)
+            print(f"[rule] {path}, k {k}: peak {got['peak_bytes'] / 2**30:.2f}"
+                  f" GiB over {got['resident_bytes'] / 2**30:.2f} resident: "
+                  f"{got['bytes_per_view_px']:.1f} B a view-pixel, the rule "
+                  f"counts {got['rule_bytes_per_view_px']:.1f}; {views}x"
+                  f"{res}² on {smi}", flush=True)
+            require(got["bytes_per_view_px"] <= got["rule_bytes_per_view_px"],
+                    f"(d) {path} at k {k}: {got['bytes_per_view_px']} B a "
+                    f"view-pixel, above the rule's "
+                    f"{got['rule_bytes_per_view_px']}")
+    del geo, batch
+    torch.cuda.empty_cache()
+    print(f"[rule] phase 10 (d) {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 # phase 16: each mode of the port's bench, its expected metric and the
@@ -1646,7 +1817,8 @@ def image_to_3d_phase(smi, tmp, run, views, res, device=None,
     skel_cfg["geometry_type"] = "TetMeshSkeletonGeometry"
     skel_cfg["geometry"]["key_points_file_path"] = f"{tmp}/skeleton.json"
     dump_config(f"{tmp}/skeleton.yaml", skel_cfg)
-    chunks = views // 8
+    vc = tt._auto_view_chunk(views, 1, res, device=device)   # auto's pick
+    chunks = views // vc if vc else 1
     logged, out, _ = run(
         "c_skeleton", 8, None, "total_num_iter=8", "log_every=1",
         "export_every=100", config=f"{tmp}/skeleton.yaml",
@@ -1662,10 +1834,11 @@ def image_to_3d_phase(smi, tmp, run, views, res, device=None,
     require(_falls(logged), f"(c): img_loss did not fall {logged}")
     sphere_files = [n for n in os.listdir(f"{out}/final") if "_sp" in n]
     require(len(sphere_files) == 6, f"(c): per-capsule files {sphere_files}")
-    mvp8 = torch.tensor(np.stack([np.load(f"{tmp}/img/mvp_mtx_{i}.npy")
-                                  for i in range(8)]), device=dev)
+    # one chunk of the step's views: all of them where auto picks none
+    mvp_c = torch.tensor(np.stack([np.load(f"{tmp}/img/mvp_mtx_{i}.npy")
+                                   for i in range(vc or views)]), device=dev)
     _check_chunk("(c) skeleton, final geometry", geo.statics, geo.tet_v,
-                 mvp8, res, validated_tile_k(geo, {"mvp": mvp8}, res),
+                 mvp_c, res, validated_tile_k(geo, {"mvp": mvp_c}, res),
                  tag="image-to-3d")
     del geo
 
@@ -1821,7 +1994,7 @@ def tetwild_phase(smi, tmp, run, views, res, device=None):
                     for i in range(n_sp)),
             f"(b): {mesh.num_tets} tets, {F} faces: not the stand-in's "
             f"{n_sp} cones of {n_tri}")
-    vc = tt._auto_view_chunk(views, 1, res)
+    vc = tt._auto_view_chunk(views, 1, res, device=device)
     want = dict.fromkeys(counts, 0)
     want.update(_path_launches(F, views, res, 8,
                                chunks=views // vc if vc else 1))
@@ -1834,7 +2007,9 @@ def tetwild_phase(smi, tmp, run, views, res, device=None):
           f"the faces on {layout}'s layout; {views}x{res}² for 8 iterations "
           f"(the driver's line above)", flush=True)
     geo = _final_geometry(out, dev)
-    mvp_t = torch.tensor(mvp8, device=dev)
+    # one chunk of the step's views: all of them where auto picks none
+    mvp_t = torch.tensor(np.stack([np.load(f"{tmp}/img/mvp_mtx_{i}.npy")
+                                   for i in range(vc or views)]), device=dev)
     _check_chunk("(b) tetwild, final geometry", geo.statics, geo.tet_v,
                  mvp_t, res, validated_tile_k(geo, {"mvp": mvp_t}, res),
                  tag="tetwild")
@@ -2160,6 +2335,7 @@ def pipeline_phase(smi, views=120, res=512, surf_res=50, num_iter=50,
 
             def counted(state, batch, it):
                 if it in (11, 12):          # the last step before, the first after
+                    # a chunk of the step's views, or all where it has none
                     vc = kw["view_chunk"] or batch["mvp"].shape[0]
                     chunks[it] = (args[0], state.params.detach().clone(),
                                   batch["mvp"][:vc].clone(), kw["tile_k"])

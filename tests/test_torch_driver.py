@@ -5,6 +5,7 @@ SIGTERM, the knobs (the sanitizers and the SDS dispatch among them)."""
 
 import copy
 import json
+import math
 import os
 import re
 import signal
@@ -23,6 +24,7 @@ from tssplat_tpu.mesh.io import load_veg as jax_load_veg
 from tssplat_tpu.mesh.spheres import icosphere
 from tssplat_tpu.tools.synthetic import \
     write_synthetic_dataset as jax_write_dataset
+from tssplat_tpu.train import _auto_view_chunk as jax_auto_view_chunk
 from tssplat_tpu.train import train as jax_train
 
 import tssplat_torch.train as torch_train
@@ -216,6 +218,74 @@ def test_chunked_step_equals_unchunked(scene, monkeypatch, fit):
     assert int(o2[3]) == int(o0[3]) == 0
     np.testing.assert_allclose(p2.numpy(), p0.numpy(), atol=1e-6)
     assert float((p2 - geo.tet_v).abs().max()) > 1e-3
+
+
+def _free_for(views: int, res: int, tile_k=None) -> int:
+    """Free device bytes that hold ``views`` views of res² at capacity
+    ``tile_k`` under the chunk rule, and not one view more."""
+    return math.ceil(views * torch_train._bytes_per_view(res, tile_k)
+                     / torch_train._FREE_SHARE)
+
+
+@pytest.mark.parametrize("B, n_dev, res, tile_k, free_views, want", [
+    (120, 1, 512, None, 120, 0),
+    (120, 2, 512, None, 60, 0),
+    (120, 1, 512, None, 45, 40),
+    (120, 2, 512, None, 45, 60),
+    (N_VIEWS, 1, RES, None, 4, 3),
+    (120, 1, 512, 4096, 120, 0),
+    (120, 1, 512, 16384, 50, 40),
+    (120, 1, 512, None, 0, 1),
+    (120, 2, 512, None, 0, 2),
+], ids=["fits", "fits_per_device", "largest_divisor",
+        "largest_divisor_per_device", "largest_divisor_small",
+        "fits_with_lists", "largest_divisor_with_lists", "nothing_fits",
+        "nothing_fits_per_device"])
+def test_auto_view_chunk_by_free_memory(B, n_dev, res, tile_k, free_views,
+                                        want):
+    """The chunk rule with the device's free bytes given: one batch where a
+    device's B / n_dev views fit, else the largest divisor of B (a
+    multiple of n_dev) whose views fit, else n_dev, the smallest chunk.
+    A view counts its pixels and the slots of the capped layout's
+    candidate lists at ``tile_k``."""
+    got = torch_train._auto_view_chunk(
+        B, n_dev, res, tile_k=tile_k,
+        free_bytes=_free_for(free_views, res, tile_k))
+    assert got == want
+
+
+@pytest.mark.parametrize("res, tile_k, tiles", [
+    (512, None, 0), (512, 4096, 256), (512, 16384, 256), (64, 128, 8),
+    (136, 128, 34),
+], ids=["no_lists", "gso_validated", "gso_largest", "narrow",
+        "partial_tiles"])
+def test_bytes_per_view_counts_candidate_lists(res, tile_k, tiles):
+    """A view's bytes under the chunk rule: BYTES_PER_VIEW_PX a pixel and
+    BYTES_PER_TILE_SLOT a slot of the capped layout's candidate lists, one
+    list of tile_k slots for each 8 x 128 tile (a partial tile counts
+    whole)."""
+    assert torch_train._bytes_per_view(res, tile_k) == \
+        res * res * torch_train.BYTES_PER_VIEW_PX \
+        + tiles * (tile_k or 0) * torch_train.BYTES_PER_TILE_SLOT
+
+
+@pytest.mark.parametrize("B, n_dev, res, device", [
+    (2, 1, 64, None), (N_VIEWS, 1, RES, None), (N_VIEWS, 2, RES, None),
+    (120, 1, 512, None), (120, 2, 512, None), (120, 1, 512, "cpu"),
+], ids=["bench", "driver", "driver_per_device", "gso", "gso_per_device",
+        "gso_cpu_device"])
+def test_auto_view_chunk_off_cuda_is_jax(monkeypatch, B, n_dev, res,
+                                         device):
+    """Off CUDA (no card, or a CPU device asked for) the chunk rule is
+    JAX's, at the shapes the bench and driver tests run and at gso.yaml's
+    120 views of 512²; no free memory is read."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: device is not None)
+
+    def no_read(*a, **k):
+        raise AssertionError("free memory read off CUDA")
+    monkeypatch.setattr(torch.cuda, "mem_get_info", no_read)
+    assert torch_train._auto_view_chunk(B, n_dev, res, device=device) == \
+        jax_auto_view_chunk(B, n_dev, res)
 
 
 @pytest.fixture(scope="module")

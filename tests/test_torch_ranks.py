@@ -8,6 +8,7 @@ texture loss against JAX's (tests/test_texture_exact.py).
 Ranks are CPU processes in a gloo group, each started and bounded in time
 by ``run_ranks``; their jobs are in ``tests/torch_rank_jobs.py``."""
 
+import math
 import os
 import time
 
@@ -126,6 +127,24 @@ def test_run_ranks_all_reduce_and_broadcast():
     assert [r["rank"] for r in res] == [0, 1, 2]
     assert all(r["world"] == 3 and r["sum"] == 4.5 and r["bcast"] == 0.0
                for r in res)
+
+
+def test_auto_view_chunk_same_on_every_rank():
+    """Under view data parallelism each rank reads its own device's free
+    memory. Ranks on either side of the chunk rule's threshold (rank 0
+    holds its 60 views at once, rank 1 only 20) still take one chunk, that
+    of the least free memory: 40 views, 20 a rank."""
+    from tssplat_torch.train import (_FREE_SHARE, _auto_view_chunk,
+                                     _bytes_per_view)
+
+    def free(views):
+        return math.ceil(views * _bytes_per_view(512, 4096) / _FREE_SHARE)
+    alone = [_auto_view_chunk(120, 2, 512, tile_k=4096, free_bytes=free(n))
+             for n in (60, 20)]
+    assert alone == [0, 40]
+    res = _ranks(JOBS + "auto_view_chunk", {
+        "free": [free(60), free(20)], "B": 120, "res": 512, "tile_k": 4096})
+    assert [r["chunk"] for r in res] == [40, 40]
 
 
 def test_run_ranks_fails_when_a_rank_raises():

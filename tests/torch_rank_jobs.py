@@ -113,3 +113,12 @@ def exact_loss(data_npz: str, params_npz: str, enc: dict, res: int,
     if rank == 0:
         torch.save(tree_unflatten(p, leaves), out)
     return {"img_loss": float(il), "views": cache["n"]}
+
+
+def auto_view_chunk(free: list, B: int, res: int, tile_k: int) -> dict:
+    """The ``view_chunk: auto`` rule over this world's ranks, as view data
+    parallelism calls it, with rank r's free device bytes ``free[r]``."""
+    from tssplat_torch.train import _auto_view_chunk
+    return {"chunk": _auto_view_chunk(B, get_world_size(), res,
+                                      tile_k=tile_k,
+                                      free_bytes=free[get_rank()])}

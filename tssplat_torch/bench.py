@@ -52,6 +52,7 @@ from .materials import ExplicitMaterial
 from .materials.exact_stage import (build_texture_exact_cache,
                                     build_texture_exact_loss)
 from .ops import raster_kernels as rk
+from .ops.binning import capacity
 from .optim import adam_uniform, cosine_annealing_lr
 from .parallel.mesh import MEAN, shard_batch
 from .tools.synthetic import bench_scene
@@ -153,7 +154,11 @@ def build(knobs: Knobs, device: DeviceLike = None) -> BenchRun:
     _log(f"spheres={knobs.spheres}: {geo.tetmesh.num_vertices} verts, "
          f"{int(geo.statics.surface_fid.shape[0])} faces")
     init_fn, update_fn = _geometry_optimizer()
-    view_chunk = (_auto_view_chunk(knobs.views, 1, knobs.res)
+    # the capped layout's capacity the step takes (its default heuristic)
+    k = capacity(None, int(geo.statics.surface_fid.shape[0]),
+                 (knobs.res, knobs.res))
+    view_chunk = (_auto_view_chunk(knobs.views, 1, knobs.res, tile_k=k,
+                                   device=dev)
                   if knobs.view_chunk == "auto" else int(knobs.view_chunk))
     if view_chunk:
         _log(f"view_chunk={view_chunk}")

@@ -73,7 +73,8 @@ from .geometry.tet_geometry import (GeometryStatics,
                                     LinearInterpolateScheduler,
                                     geometry_forward,
                                     permute_surface_vertices)
-from .ops.binning import default_tile_capacity, validate_tile_capacity
+from .ops.binning import (CAP_TILE_H, CAP_TILE_W, default_tile_capacity,
+                          validate_tile_capacity)
 from .ops.rasterize import interpolate, rasterize
 from .ops.transform import transform_pos
 from .optim import (adam, adam_uniform, apply_updates, cosine_annealing_lr,
@@ -462,10 +463,27 @@ def _validated_tile_k(geometry, dataloader, resolution: int,
     return int(k)
 
 
-def _auto_view_chunk(B: int, n_dev: int, resolution: int) -> int:
-    """Default view-microbatch size (``_auto_view_chunk``, train.py:355):
-    ~8 views per device at 512^2, scaling with 1/resolution^2; 0 when the
-    whole batch already fits the target."""
+# Device memory a view-pixel of an unchunked step takes above what is
+# resident when the chunk rule runs, the capped layout's candidate lists
+# apart: the largest over the silhouette, depth + normal and dense colour
+# texture steps at 120 views of 512² on an H100 (tools/view_memory.py, the
+# 18-sphere scene), depth + normal's 433 B (its peak lies outside the
+# binning: the same at capacities 4096 and 16384), with a 25% margin.
+BYTES_PER_VIEW_PX = 544
+# Device memory a slot of the candidate lists (views x tiles x tile_k)
+# takes while bin_faces_capped builds them: 24.9 B measured the same way
+# (the silhouette step's peak is the binning's: 108.6 B a view-pixel at
+# capacity 4096, 407.6 at 16384), with a margin. A scene can validate to a
+# capacity of up to next_pow2(F), 4x the 4096 of gso.yaml's.
+BYTES_PER_TILE_SLOT = 32
+# the share of the device's free memory one batch of views may take
+_FREE_SHARE = 0.5
+
+
+def _tpu_view_chunk(B: int, n_dev: int, resolution: int) -> int:
+    """The JAX package's rule (``_auto_view_chunk``, train.py:355), sized
+    for a TPU's memory: ~8 views per device at 512^2, scaling with
+    1/resolution^2; 0 when the whole batch already fits the target."""
     per_dev = max(1, (8 * 512 * 512) // max(resolution * resolution, 1))
     target = per_dev * n_dev
     if B <= target:
@@ -474,6 +492,61 @@ def _auto_view_chunk(B: int, n_dev: int, resolution: int) -> int:
         if B % c == 0 and c % n_dev == 0:
             return c if c < B else 0
     return 0
+
+
+def _bytes_per_view(resolution: int, tile_k: Optional[int]) -> int:
+    """The device memory the chunk rule counts for one view of
+    resolution²: ``BYTES_PER_VIEW_PX`` a pixel, and ``BYTES_PER_TILE_SLOT``
+    a slot of the capped layout's candidate lists at capacity ``tile_k``
+    (None: none)."""
+    per_view = resolution ** 2 * BYTES_PER_VIEW_PX
+    if tile_k:
+        tiles = -(-resolution // CAP_TILE_H) * -(-resolution // CAP_TILE_W)
+        per_view += tiles * tile_k * BYTES_PER_TILE_SLOT
+    return per_view
+
+
+def _auto_view_chunk(B: int, n_dev: int, resolution: int, *,
+                     tile_k: Optional[int] = None,
+                     free_bytes: Optional[int] = None,
+                     device: DeviceLike = None) -> int:
+    """Default view-microbatch size for B views over n_dev devices: 0 (one
+    batch) where a device's B / n_dev views of resolution² fit
+    ``_FREE_SHARE`` of its free memory, else the largest divisor of B (a
+    multiple of n_dev) whose views fit, else n_dev, the smallest chunk. A
+    view takes ``BYTES_PER_VIEW_PX`` a pixel plus ``BYTES_PER_TILE_SLOT``
+    for each slot of the capped layout's candidate lists at capacity
+    ``tile_k`` (None: no lists counted). The free memory is the CUDA
+    device's (``device``, or the current one) unless ``free_bytes`` gives
+    it; off CUDA the rule is the JAX package's. Over the n_dev > 1 ranks
+    of view data parallelism every rank must take the same chunks
+    (``shard_batch``), so the rule runs on the least free memory of any
+    rank (a MIN all_reduce: every rank calls this)."""
+    if free_bytes is None:
+        if device is not None and torch.device(device).type != "cuda" \
+                or not torch.cuda.is_available():
+            return _tpu_view_chunk(B, n_dev, resolution)
+        free, _ = torch.cuda.mem_get_info(device)
+        # blocks the allocator holds but has not handed out are free too
+        free_bytes = free + torch.cuda.memory_reserved(device) \
+            - torch.cuda.memory_allocated(device)
+    if n_dev > 1 and dist.is_available() and dist.is_initialized():
+        on = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        least = torch.tensor([int(free_bytes)], dtype=torch.int64, device=on)
+        dist.all_reduce(least, op=dist.ReduceOp.MIN)
+        free_bytes = int(least.item())
+    per_view = _bytes_per_view(resolution, tile_k)
+    budget = _FREE_SHARE * free_bytes
+
+    def fits(c: int) -> bool:
+        return c / n_dev * per_view <= budget
+
+    if fits(B):
+        return 0
+    for c in range(B - 1, n_dev - 1, -1):
+        if B % c == 0 and c % n_dev == 0 and fits(c):
+            return c
+    return n_dev
 
 
 def run_steps(step: Callable, state: TrainState, batch: dict, start_it: int,
@@ -703,7 +776,8 @@ def _train(cfg, dev: torch.device):
     if spatial is not None or data_world > 1:
         view_chunk = 0
     elif vc_cfg == "auto":
-        view_chunk = _auto_view_chunk(batch_size, n_shard, resolution)
+        view_chunk = _auto_view_chunk(batch_size, n_shard, resolution,
+                                      tile_k=tile_k, device=dev)
     else:
         view_chunk = int(vc_cfg)
     if view_chunk and not (batch_size % view_chunk == 0
