@@ -5,8 +5,8 @@ from; the benchmark's own runs never run this.
         [--control-seeds c,d,e]
 
 For every seed: set-up as a run makes it, the program's first three
-iterations, then the plain reference, and the numbers that decide
-``correct`` (the lower readings). For every control seed besides: the
+iterations, then the configuration's plain reference, and the numbers
+that decide ``correct`` (the lower readings). For every control seed besides: the
 reference computed with TF32 matrix products in the program's place (the
 control), and the reference over half of the views, the mean taken over
 them (a fault a step can have), each held against the reference. A step
@@ -33,8 +33,8 @@ def readings_of(cell: Cell, seed: int, device, control: bool) -> list:
     import torch
 
     from .reference.compare import readings
-    from .reference.steps import Reference
 
+    Reference = cell.reference().Reference
     folder = tempfile.mkdtemp(prefix="bench_cal_")
     try:
         prob, overrides = make_inputs(cell, seed, folder, device)

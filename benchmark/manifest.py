@@ -9,9 +9,20 @@
   benchmark/limits/<cell>.yaml        the limits of the numbers that decide
                                       ``correct``
   benchmark/metrics/<metric>.py       a per-layer metric's reader
+  benchmark/inputs/<name>.py          a configuration's inputs writer: the
+                                      seed's dataset and mesh, written
+                                      where the program reads them
+                                      (``make``), and the colour field's
+                                      weights (``weights``)
+  benchmark/reference/<name>.py       a configuration's plain reference
+                                      (``Reference``, ``leaf_names``,
+                                      ``pair_counts_of``)
 
-A cell, configuration, traffic mix or metric is added by adding its files
-and its entries; no code here names one.
+A configuration names its inputs writer and its reference in a block of
+its own, ``harness: {inputs: <name>, reference: <name>}``; without it
+they are ``mitsuba_spheres`` and ``steps``. A cell, configuration,
+traffic mix, inputs writer, reference or metric is added by adding its
+files and its entries; no code here names one.
 """
 
 from __future__ import annotations
@@ -19,11 +30,14 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 import yaml
 
 ROOT = Path(__file__).resolve().parent.parent
+DEFAULT_INPUTS = "mitsuba_spheres"
+DEFAULT_REFERENCE = "steps"
 
 
 def _read_yaml(path: Path) -> dict:
@@ -80,6 +94,9 @@ class Cell:
         self.config_entry = configs[self.workload["config"]]
         self.config_path = root / self.config_entry["file"]
         self.config = _read_yaml(self.config_path)
+        harness = self.config.get("harness") or {}
+        self.inputs_name = harness.get("inputs", DEFAULT_INPUTS)
+        self.reference_name = harness.get("reference", DEFAULT_REFERENCE)
         bench = root / "benchmark"
         self.traffic = _read_yaml(bench / "traffic"
                                   / f"{self.workload['traffic']}.yaml")
@@ -107,12 +124,39 @@ class Cell:
 
     def reader(self, metric: str):
         """The ``read(ctx)`` of ``benchmark/metrics/<metric>.py``."""
-        path = self.root / "benchmark" / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            "benchmark_metric_" + re.sub(r"\W", "_", metric), path)
+        return load("metrics", metric, self.root).read
+
+    def inputs(self):
+        """The configuration's inputs writer, ``benchmark/inputs/<name>.py``
+        (``benchmark/inputs/__init__.py`` states what it provides)."""
+        return load("inputs", self.inputs_name, self.root)
+
+    def reference(self):
+        """The configuration's plain reference, ``benchmark/reference/
+        <name>.py`` (``benchmark/reference/__init__.py`` states what it
+        provides)."""
+        return load("reference", self.reference_name, self.root)
+
+
+def load(kind: str, name: str, root: Path = ROOT):
+    """``benchmark/<kind>/<name>.py`` under ``root`` as the module
+    ``benchmark.<kind>.<name>``, each character of the name that Python's
+    names lack as ``_``, so that it imports the package's modules
+    relatively. It is loaded once a process: the first root to ask for a
+    name serves it, and a module the package already imported is that
+    module."""
+    full = f"{__package__}.{kind}." + re.sub(r"\W", "_", name)
+    if full not in sys.modules:
+        path = Path(root) / "benchmark" / kind / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(full, path)
         mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        sys.modules[full] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[full]
+            raise
+    return sys.modules[full]
 
 
 def env_dirs(root: Path = ROOT) -> dict:

@@ -3,8 +3,7 @@ time of one step's forward and backward antialias work
 (``benchmark/yardstick.py antialias_work`` on the pair counts of every
 view at the traced run's parameters), each at the card's published peaks,
 over the device time of the kernels named below in a step of the profiled
-stretch (the forward runs twice a chunk, once more where the backward
-recomputes it; the work counts it once)."""
+stretch (the forward runs once a step; the work counts it once)."""
 
 from benchmark.yardstick import antialias_work, least_seconds
 

@@ -96,7 +96,8 @@ class ProgramRun:
         self.tile_k = tile_k = tt._validated_tile_k(geometry, dataloader,
                                                     resolution, is_ortho)
         vc_cfg = cfg.get("view_chunk", "auto")
-        view_chunk = tt._auto_view_chunk(batch_size, 1, resolution) \
+        view_chunk = tt._auto_view_chunk(batch_size, 1, resolution,
+                                         tile_k=tile_k, device=dev) \
             if vc_cfg == "auto" else int(vc_cfg)
         if view_chunk and not (batch_size % view_chunk == 0
                                and batch_size > view_chunk):

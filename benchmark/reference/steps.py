@@ -31,8 +31,8 @@ from . import energy as en
 from . import field as fd
 from .mesh import edge_neighbours, surface
 from .optim import AdamUniform
-from .raster import (antialias, clip_positions, interpolate, shade,
-                     vertex_normals, visibility, winner_rows)
+from .raster import (antialias, clip_positions, interpolate, pair_counts,
+                     shade, vertex_normals, visibility, winner_rows)
 
 
 @dataclass
@@ -236,6 +236,29 @@ class Reference:
                 "grad_norms": first,
                 "change_norms": [float(torch.linalg.norm(p - s))
                                  for p, s in zip(params, start)]}
+
+
+@torch.no_grad()
+def pair_counts_of(prob: Problem, x: torch.Tensor, shaded: bool,
+                   device) -> dict:
+    """The silhouette antialias's pair counts over every view at tet
+    vertices x, in chunks of views as the reference projects and bins
+    them, summed (the work ``antialias_roofline`` is measured against)."""
+    sv, sf = surface(prob.tets)
+    corner = torch.as_tensor(sv[sf].reshape(-1), device=device)
+    nbrs = torch.as_tensor(edge_neighbours(sf), device=device)
+    res = int(prob.rgba.shape[1])
+    total: dict = {}
+    for s in range(0, prob.mvp.shape[0], CHUNK):
+        pos = clip_positions(x[corner], torch.as_tensor(
+            prob.mvp[s:s + CHUNK], device=device))
+        ids, z = visibility(pos, res)
+        if shaded:
+            z = shade(pos, ids, res)[..., 2]
+        g, aux = winner_rows(pos, nbrs, ids)
+        for k, v in pair_counts(ids, z, g, aux).items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def leaf_names(tree: dict) -> list:

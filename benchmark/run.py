@@ -4,11 +4,12 @@
         --trace <0|1>
 
 Set-up (timed from the start of this module to the first timed step): the
-inputs from the seed (the spheres' tet mesh, the cameras, the ellipsoid's
-targets written as the dataset the program's loader reads, the colour
-field's weights), the program's run assembled as its driver assembles it,
-and its first three iterations, which warm every shape the window uses and
-are held against the plain reference once the window has closed. The
+inputs from the seed, by the configuration's inputs writer (by default the
+spheres' tet mesh, the cameras, the ellipsoid's targets written as the
+dataset the program's loader reads, the colour field's weights), the
+program's run assembled as its driver assembles it, and its first three
+iterations, which warm every shape the window uses and are held against
+the configuration's plain reference once the window has closed. The
 kernels' build is timed on its own (``build_s``, nought once the checkout
 holds them) and is a part of set-up. The window then drives the same run
 from iteration 3 for ``--seconds`` and ends on a host read; its rate is
@@ -46,8 +47,6 @@ import tempfile  # noqa: E402
 from contextlib import contextmanager, redirect_stdout  # noqa: E402
 from pathlib import Path  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
-
-import numpy as np  # noqa: E402
 
 from .manifest import ROOT, Cell, env_dirs  # noqa: E402
 
@@ -89,36 +88,10 @@ def card_state() -> dict:
 # ---------------------------------------------------------------------------
 
 def make_inputs(cell: Cell, seed: int, folder: str, device):
-    """The seed's inputs, written where the program reads them; returns the
-    reference's Problem (without the configuration) and the run's
-    overrides."""
-    from . import scene
-    from .reference.steps import Problem
-
-    assumed = cell.config["assumed"]
-    traffic = cell.traffic
-    views, res = int(traffic["views"]), int(traffic["resolution"])
-    verts, tets, vtx_idx, elem_idx = scene.sphere_mesh(
-        assumed, scene.rng_of(seed, 1))
-    mvp, mv, campos = scene.fibonacci_views(
-        views, radius=float(assumed["camera_radius"]))
-    dn = bool(traffic.get("depth_normal", False))
-    targets = scene.render_targets(
-        assumed, scene.ellipsoid_of(assumed, scene.rng_of(seed, 2)), mvp,
-        campos, res, dn, device)
-    scene.write_dataset(os.path.join(folder, "img"), targets, mvp, mv)
-    scene.write_sphere_cache(os.path.join(folder, "cache"), verts, tets,
-                             vtx_idx, elem_idx)
-    overrides = {"data.dataset_config.image_root": os.path.join(folder,
-                                                                "img"),
-                 "geometry.tetwild_cache_folder": os.path.join(folder,
-                                                               "cache"),
-                 "output_path": os.path.join(folder, "out")}
-    prob = Problem(verts=verts, tets=tets, n_spheres=len(vtx_idx),
-                   mvp=mvp.astype(np.float32), mv=mv.astype(np.float32),
-                   rgba=targets["rgba"], depth=targets.get("depth"),
-                   normal=targets.get("normal"), cfg={})
-    return prob, overrides
+    """The seed's inputs, written where the program reads them by the
+    configuration's inputs writer; returns the reference's Problem
+    (without the configuration) and the run's overrides."""
+    return cell.inputs().make(cell, seed, folder, device)
 
 
 def _arg(v) -> str:
@@ -128,9 +101,7 @@ def _arg(v) -> str:
 def build_program(cell: Cell, prob, overrides: dict, seed: int, device):
     """The program's run and the names of its parameter leaves; sets the
     Problem's configuration and, for the texture stage, its weights."""
-    from . import scene
     from .program import ProgramRun
-    from .reference.steps import leaf_names
 
     import torch
 
@@ -138,10 +109,10 @@ def build_program(cell: Cell, prob, overrides: dict, seed: int, device):
     prob.cfg = cfg
     weights = None
     if cfg.get("fitting_stage", "geometry") == "texture":
-        prob.weights = scene.field_weights(cfg["material"], seed, device)
+        prob.weights = cell.inputs().weights(cfg["material"], seed, device)
         weights = {k: {n: t.clone() for n, t in v.items()}
                    for k, v in prob.weights.items()}
-        names = leaf_names(prob.weights)
+        names = cell.reference().leaf_names(prob.weights)
     else:
         names = [("tet_v",)]
     args = [f"{k}={_arg(v)}" for k, v in {**cell.overrides(),
@@ -270,33 +241,6 @@ def failures(outs) -> int:
     return int(((~torch.isfinite(loss)) | (drop > 0)).sum())
 
 
-def aa_counts(prob, x, shaded: bool, device) -> dict:
-    """The silhouette antialias's pair counts over every view at tet
-    vertices x, summed (the work its roofline is measured against)."""
-    import torch
-
-    from .reference.mesh import edge_neighbours, surface
-    from .reference.raster import (clip_positions, pair_counts, shade,
-                                   visibility, winner_rows)
-
-    sv, sf = surface(prob.tets)
-    corner = torch.as_tensor(sv[sf].reshape(-1), device=device)
-    nbrs = torch.as_tensor(edge_neighbours(sf), device=device)
-    res = int(prob.rgba.shape[1])
-    total: dict = {}
-    with torch.no_grad():
-        for s in range(0, prob.mvp.shape[0], 8):
-            pos = clip_positions(x[corner], torch.as_tensor(
-                prob.mvp[s:s + 8], device=device))
-            ids, z = visibility(pos, res)
-            if shaded:
-                z = shade(pos, ids, res)[..., 2]
-            g, aux = winner_rows(pos, nbrs, ids)
-            for k, v in pair_counts(ids, z, g, aux).items():
-                total[k] = total.get(k, 0) + v
-    return total
-
-
 # ---------------------------------------------------------------------------
 # one run
 # ---------------------------------------------------------------------------
@@ -319,6 +263,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         t_build = time.perf_counter()
         build_kernels()
         build_s = time.perf_counter() - t_build
+    reference = cell.reference()
     folder = tempfile.mkdtemp(prefix="bench_run_")
     try:
         prob, overrides = make_inputs(cell, seed, folder, dev)
@@ -370,8 +315,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
                     1e3 * s for s in (run.loader_s or [])],
                 step_ms=step_ms, window_peak_bytes=window_peak,
                 views=run.n_views, res=run.resolution, faces=run.n_faces,
-                shaded=shaded, aa_counts=None if texture else aa_counts(
-                    prob, run.state.params.detach(), shaded, dev))
+                shaded=shaded, aa_counts=None if texture else
+                reference.pair_counts_of(prob, run.state.params.detach(),
+                                         shaded, dev))
             for m in cell.per_layer:
                 value = cell.reader(m["name"])(ctx)
                 if value is not None:
@@ -388,9 +334,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         if on_card:
             torch.cuda.empty_cache()
         from .reference.compare import readings, verdict
-        from .reference.steps import Reference
         t_ref = time.perf_counter()
-        ref = Reference(prob, dev).follow(3)
+        ref = reference.Reference(prob, dev).follow(3)
         print(f"seconds: setup {setup_s:.3f} (build {build_s:.3f}) window "
               f"{elapsed:.3f} reference {time.perf_counter() - t_ref:.3f} "
               f"tile_k {tile_k} view_chunk {view_chunk}", file=sys.stderr)

@@ -1,5 +1,7 @@
-"""The inputs of a run, made from its seed: the cameras, the 18 spheres'
-tet mesh, the ellipsoid's target images and the colour field's weights.
+"""The helpers the inputs writers (``benchmark/inputs/``) share to make a
+run's inputs from its seed: the cameras, the 18 spheres' tet mesh, the
+ellipsoid's target images, the Mitsuba dataset layout and the colour
+field's shapes.
 
 The same seed gives the same inputs; the sizes never depend on it. The
 seed turns and stretches the target ellipsoid and turns the sphere layout,
@@ -396,7 +398,7 @@ def write_dataset(folder: str, targets: dict, mvp, mv) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the colour field's weights
+# the colour field's shapes
 # ---------------------------------------------------------------------------
 
 def field_shapes(material: dict) -> dict:
@@ -415,22 +417,3 @@ def field_shapes(material: dict) -> dict:
         shapes[("network", f"l{i}_w")] = (a, b)
         shapes[("network", f"l{i}_b")] = (b,)
     return shapes
-
-
-@torch.no_grad()
-def field_weights(material: dict, seed: int, device) -> dict:
-    """The colour field's starting weights on ``device``, from the seed: the
-    table uniform in +-1e-4, the weights He-normal, the biases 0 (the
-    initialisation tiny-cuda-nn and the reference trainer use)."""
-    gen = torch.Generator(device=device).manual_seed(torch_seed_of(seed, 7))
-    out = {"encoding": {}, "network": {}}
-    for (group, name), shape in field_shapes(material).items():
-        if name == "table":
-            t = torch.rand(shape, generator=gen, device=device) * 2e-4 - 1e-4
-        elif name.endswith("_w"):
-            t = torch.randn(shape, generator=gen, device=device) \
-                * math.sqrt(2.0 / shape[0])
-        else:
-            t = torch.zeros(shape, device=device)
-        out[group][name] = t
-    return out

@@ -19,8 +19,7 @@ A sync span is not a layer: its gaps go to the layer around it.
 
 from __future__ import annotations
 
-import importlib.util
-from pathlib import Path
+from .manifest import load
 
 LAYERS = ("loader", "visibility", "binning", "render", "energy", "backward",
           "optim")
@@ -31,13 +30,8 @@ SYNC = "tssplat.sync."
 def sync_calls() -> tuple:
     """The CUDA runtime calls that wait for the device: the ``SYNC_CALLS``
     of ``metrics/step.host_syncs_per_step.geometry.py``."""
-    path = Path(__file__).parent / "metrics" / \
-        "step.host_syncs_per_step.geometry.py"
-    spec = importlib.util.spec_from_file_location("benchmark_sync_calls",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return tuple(mod.SYNC_CALLS)
+    return tuple(load("metrics", "step.host_syncs_per_step.geometry")
+                 .SYNC_CALLS)
 
 
 def rows(trace, name=None, prefix=None) -> list:

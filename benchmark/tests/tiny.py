@@ -1,6 +1,8 @@
 """A throwaway checkout root holding the benchmark's data files at a size
 the CPU runs in seconds: 2 spheres, 4 views of 64² (the code is the
-repository's; only the data is copied and shrunk)."""
+repository's; only the data is shrunk, and the modules a cell names by
+file, metrics, inputs writers and references, are copied beside it so
+that a test can add its own)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ def make_root(dst: Path, spheres: int = 2, views: int = 4,
               res: int = 64) -> Path:
     dst = Path(dst)
     (dst / "benchmark").mkdir(parents=True, exist_ok=True)
-    for d in ("configs", "traffic", "limits", "metrics"):
+    for d in ("configs", "traffic", "limits", "metrics", "inputs",
+              "reference"):
         shutil.copytree(REPO / "benchmark" / d, dst / "benchmark" / d)
     shutil.copy(REPO / "BENCHMARK.json", dst / "BENCHMARK.json")
     for f in (dst / "benchmark" / "configs").glob("*.yaml"):
