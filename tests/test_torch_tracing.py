@@ -112,10 +112,13 @@ NESTED = [("tssplat.visibility", "tssplat.step"),
           ("tssplat.optim", "tssplat.step"),
           ("tssplat.sync.optim", "tssplat.optim")]
 CASES = {
-    "silhouette": (GEOMETRY, NESTED),
-    "depth_normal": (GEOMETRY, NESTED + [
+    "silhouette": ({**GEOMETRY, "tssplat.normals": 0}, NESTED),
+    # the normal shading in each render
+    "depth_normal": ({**GEOMETRY, "tssplat.normals": 2 * CHUNKS}, NESTED + [
         ("tssplat.sync.row_gather", "tssplat.step"),
-        ("tssplat.sync.normals", "tssplat.render")]),
+        ("tssplat.sync.normals", "tssplat.render"),
+        ("tssplat.normals", "tssplat.render"),
+        ("tssplat.sync.normals", "tssplat.normals")]),
     "texture": ({"tssplat.step": 1, "tssplat.encoding": 1,
                  "tssplat.mlp": 1, "tssplat.antialias_color": 1,
                  "tssplat.backward": 1, "tssplat.optim": 1,

@@ -151,14 +151,15 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
         shaded = antialias_color(gb, rast, pos_clip, geom.edge_nbrs)
     normal = depth = None
     if fit_normal:
-        tri = fwd.t_pos_idx
-        v_nrm = compute_vertex_normals(fwd.v_pos, tri)
-        if normal_flip_z:      # Wonder3D/GSO convention (reference :141-144)
-            with span("tssplat.sync.normals"):   # a host-to-device copy
-                flip = torch.tensor([1.0, 1.0, -1.0], dtype=v_nrm.dtype,
-                                    device=v_nrm.device)
-            v_nrm = v_nrm * flip
-        normal = interpolate(v_nrm[tri.reshape(-1)], rast)
+        with span("tssplat.normals"):
+            tri = fwd.t_pos_idx
+            v_nrm = compute_vertex_normals(fwd.v_pos, tri)
+            if normal_flip_z:  # Wonder3D/GSO convention (reference :141-144)
+                with span("tssplat.sync.normals"):   # a host-to-device copy
+                    flip = torch.tensor([1.0, 1.0, -1.0], dtype=v_nrm.dtype,
+                                        device=v_nrm.device)
+                v_nrm = v_nrm * flip
+            normal = interpolate(v_nrm[tri.reshape(-1)], rast)
     if fit_depth:
         if campos is None:
             raise ValueError("fit_depth needs campos")
