@@ -62,12 +62,24 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                K3 on K5's d g6 within its rows' tolerance; each timed as in
                phase 3 (K2b / K2a's plain time is the boxed form's), with
                its bound, into the kernel's ``gso_120v`` entry by path
+  6d. the shaded path's kernels (``shaded_phase``): K6, K7 and K8 on
+               6c's scene, at its 120 views (K2a's winners at the
+               validated capacity) and at the Wonder3D cell's six
+               orthographic views, each against its plain version
+               (tools/shade_cases.py check_shaded: the forwards and K7's
+               d rast to the bit, the folds within 1e-5 of their rows' sums
+               of |values|), timed as in phase 3 with its plain version and
+               its bound (bytes over 3.35 TB/s); then one depth + normal
+               step of the 120 views (Adam, one batch): its launches (K2a,
+               K3, K4, K5, K6, K6's backward and K8 once, K7 and its
+               backward twice), time and peak memory
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
   8. multi-sphere depth + normal training — 3 + 20 steps with Adam (lr 2e-3
-               cosine over 400), normal weight 10: K2a, K3, K4, K5 each once
-               per step
+               cosine over 400), normal weight 10: K2a, K3, K4, K5, K6, K6's
+               backward and K8 each once per step, K7 and its backward twice
+               (the normals and the positions)
   9. multi-sphere reference — 2 of the views (capped for both table widths
                at B = 2): one silhouette step and one depth + normal step at
                iteration 1001 on the card against the CPU
@@ -88,7 +100,8 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                the logged value), each kernel once an iteration; (c) the
                normal loss (K2a) and the depth loss from iteration 4 with
                Adam lr 2e-3 for 12 iterations in chunks of 8 (view_chunk=8:
-               K2a, K3, K5 15 and K4 30 times an iteration): the step
+               K2a, K3, K5 15 and K4 30 times an iteration; K6, K8 30, K7
+               30 or 60, and their backwards 15 and 15 or 30): the step
                rebuilt there, finite losses; (c2) the same as shipped
                (view_chunk auto: one batch on the card, each kernel once an
                iteration), its iteration-0 img_loss that of (c) (rtol
@@ -106,8 +119,9 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                grid, 32-64-3 MLP) at 120 views of 512², the ellipsoid's
                antialiased Lambertian colour as the target. (a) the exact
                path, 24 iterations: its line printed and no warning, the
-               visibility kernel (K1 or K2a) launched once per view in the
-               cache build, once in the UV bake and never inside a step,
+               visibility kernel (K1 or K2a), K6 and K7 launched once per
+               view in the cache build and once in the UV bake, K8 once
+               inside each step and nothing else,
                img_loss falling (the mean of the last four logged against
                the first four), final/material/{material.npz,
                texture_kd.png, mesh.obj, material.mtl} written and the
@@ -237,8 +251,8 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                plain version
  16. bench (``bench_phase``, after 12): ``python -m tssplat_torch.bench``
                as subprocesses of the checkout, in each mode of BENCH_RUNS:
-               (a) BENCH_SMOKE=1 (the six kernels against their plain
-               versions on 2 views of 128²), (b) the bench scene (8 views
+               (a) BENCH_SMOKE=1 (every kernel against its plain version
+               on 2 views of 128²), (b) the bench scene (8 views
                of 512²), (c) BENCH_SPHERES=18, (d) BENCH_VIEWS=120
                BENCH_SPHERES=18 (gso.yaml's width; one batch), (e)
                BENCH_STAGE=texture, the exact path and BENCH_TEX_SAMPLE=4096,
@@ -253,7 +267,9 @@ The launch counts are zeroed just before each main-path phase (4, 7, 8,
 10a-c2, 11a-b, 12c, 13b-e, each run of 14, 15b, and in each bench process of
 16 before its timed window) and read just after it. Then
 one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
-4, of K2b from 7, of K2a from 8; ``launches_texture`` from phase 11 (a);
+4, of K2b from 7, of K2a, K6, K7 and K8 from 8; K6-K8's times and bounds
+at 120 views from 6d, and at the Wonder3D cell's shape as ``w3d_6v``;
+``launches_texture`` from phase 11 (a);
 ``launches_remesh``, an iteration of 12 (c) before and after the remesh;
 ``launches_image_to_3d``, each run of 14; ``launches_tetwild``, 15 (b);
 ``launches_bench``, a step of each timed bench run of 16;
@@ -758,9 +774,28 @@ def main():
         report_gso("wsr_table_grad", path, w_err, w_times["K3_ms"],
                    cuda_ms(lambda: rk.wsr_table_grad_plain(inp[0], dg6, g_F),
                            reps=5, warm=1), w_counts["K3_bound"])
-    del g_geo, g_batch, pos, inp, ct, dg6
+    del pos, inp, ct, dg6
     torch.cuda.empty_cache()
     print(f"[gso] phase 6c {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 6d. K6, K7 and K8 at gso.yaml's and the Wonder3D cell's shapes ----
+    def report_shaded(name, label, err, ms, plain_ms, bnd):
+        if label == "gso_120v":
+            exact = name in ("shade", "interp", "winner_rows")
+            report(name, f"tssplat_torch/csrc/{SHADED_SOURCES[name]}",
+                   "none (XLA code in the JAX package)", err,
+                   0.0 if exact else math.inf, ms, plain_ms, bnd)
+        else:
+            r = next(r for r in results if r["name"] == name)
+            r[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bnd[0], bound_by=bnd[1])
+            print(f"[shaded] {name} ({label}): max_err={err:.3g} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bnd[0]:.4f} ({bnd[1]}); on {smi}", flush=True)
+
+    shaded_phase(smi, report_shaded, g_geo, g_batch, g_k)
+    del g_geo, g_batch
+    torch.cuda.empty_cache()
 
     # ---- 7/8. multi-sphere training: silhouette, then depth + normal ---------
     phases = (
@@ -793,6 +828,11 @@ def main():
         path = (vis_name, "wsr_table_grad", "aa_forward", "aa_backward")
         require(all(counts[n] == 23 for n in path),
                 f"{label}: launches {counts}, expected 23 of each of {path}")
+        shaded = dict(shade=23, shade_backward=23, winner_rows=23,
+                      interp=46, interp_backward=46) if kw else \
+            dict.fromkeys(SHADED_SOURCES, 0)
+        require(all(counts[n] == c for n, c in shaded.items()),
+                f"{label}: launches {counts}, expected {shaded}")
         require(last == losses[-1] and torch.isfinite(state.params).all(),
                 f"{label}: non-finite parameters")
         print(f"[train-ms] {label}: {20 / dt:.3f} it/s over 20 steps "
@@ -801,8 +841,8 @@ def main():
               f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; n_drop "
               f"{n_drop}; launches over 23 steps {counts}", flush=True)
         for r in results:
-            if r["name"] == vis_name:
-                r["launches"] = counts[vis_name]
+            if r["name"] == vis_name or (kw and r["name"] in shaded):
+                r["launches"] = counts[r["name"]]
         del state, step, warm_outs, outs
 
     # ---- 9. multi-sphere reference: the card against the CPU, 2 views -------
@@ -857,6 +897,126 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+SHADED_SOURCES = {"shade": "shade.cu", "shade_backward": "shade.cu",
+                  "interp": "interp.cu", "interp_backward": "interp.cu",
+                  "winner_rows": "winner_rows.cu"}
+
+
+def shaded_phase(smi, report, geo, batch, k, res=RES):
+    """Phase 6d: K6, K7 and K8 on the 18-sphere scene ``geo`` at the
+    views of ``batch`` (gso.yaml's 120 of res², visibility K2a at the
+    validated capacity ``k``) and at the Wonder3D cell's six orthographic
+    views: each against its plain version (tools/shade_cases.py
+    check_shaded: forwards and K7's d rast to the bit, the folds within
+    1e-5 of their rows' sums of |values|), timed as in phase 3 beside its
+    plain version and its bound (shaded_bounds: bytes over 3.35 TB/s), the
+    numbers handed to ``report(name, shape, err, ms, plain_ms, bound)``;
+    then the launches, time and peak memory of one depth + normal step of
+    ``batch`` (Adam, one batch). Returns that step's launch counts."""
+    from tssplat_torch.ops import raster_kernels as rk
+    from tssplat_torch.ops.rasterize import visibility_ids
+    from tssplat_torch.ops.transform import transform_pos
+    from tssplat_torch.optim import adam, cosine_decay_schedule
+    from tssplat_torch.tools.shade_cases import (check_shaded, shaded_bounds,
+                                                 shaded_inputs)
+    from tssplat_torch.tools.timing import cuda_ms
+    from tssplat_torch.train import (init_train_state, make_train_step,
+                                     run_steps)
+
+    t0 = time.perf_counter()
+    dev = batch["mvp"].device
+    st = geo.statics
+    gen = torch.Generator(device=dev).manual_seed(6)
+    w3d = torch.tensor(wonder3d_mvps(), device=dev)
+    for label, mvp, ortho in (("gso_120v", batch["mvp"], False),
+                              ("w3d_6v", w3d, True)):
+        with torch.no_grad():
+            pos = transform_pos(mvp, geo.tet_v[st.corner_vid],
+                                is_ortho=ortho)
+        ids, n_drop = visibility_ids(pos, (res, res), k)
+        require(int(n_drop.sum()) == 0, f"6d {label}: n_drop {n_drop}")
+        inp = shaded_inputs(pos, ids, st.edge_nbrs, gen)
+        errs = check_shaded(inp, gen)
+        bounds = shaded_bounds(inp)
+        tbl, tbl6, nbrs, attr = inp["tbl"], inp["tbl6"], inp["nbrs"], \
+            inp["attrs"][0]
+        rast = rk.shade(ids, tbl)
+        ct4 = torch.randn(rast.shape, generator=gen, device=dev)
+        ct3 = torch.randn((*ids.shape, 3), generator=gen, device=dev)
+        calls = {
+            "shade": (lambda: rk.shade(ids, tbl),
+                      lambda: rk.shade_plain(ids, tbl)),
+            "shade_backward": (lambda: rk.shade_backward(ids, tbl, ct4),
+                               lambda: rk.shade_backward_plain(ids, tbl,
+                                                               ct4)),
+            "interp": (lambda: rk.interp(rast, attr),
+                       lambda: rk.interp_plain(rast, attr)),
+            "interp_backward": (lambda: rk.interp_backward(rast, attr, ct3),
+                                lambda: rk.interp_backward_plain(rast, attr,
+                                                                 ct3)),
+            "winner_rows": (lambda: rk.winner_rows(rast, tbl6, nbrs),
+                            lambda: rk.winner_rows_plain(rast, tbl6, nbrs)),
+        }
+        for name, (fn, plain) in calls.items():
+            report(name, label, errs[name], cuda_ms(fn),
+                   cuda_ms(plain, reps=5, warm=1), bounds[name])
+        fg = int((ids > 0).sum())
+        print(f"[shaded] {label}: {mvp.shape[0]} views of {res}², {fg} "
+              f"foreground px ({fg / ids.numel():.3f} of them), k {k}; K6, "
+              f"K7 and K8 agree with their plain versions; on {smi}",
+              flush=True)
+        del pos, ids, inp, tbl, tbl6, nbrs, attr, rast, ct4, ct3, calls
+    torch.cuda.empty_cache()
+
+    init_fn, update_fn = adam(cosine_decay_schedule(2e-3, 400,
+                                                    alpha=1e-4 / 2e-3))
+    step = make_train_step(st, update_fn, resolution=res, tile_k=k,
+                           fit_depth=True, fit_normal=True,
+                           normal_weight=10.0)
+    state = init_train_state(geo.tet_v, init_fn)
+    state, outs = run_steps(step, state, batch, 0, 2)
+    float(outs[-1][0])
+    torch.cuda.reset_peak_memory_stats()
+    rk.reset_launch_counts()
+    t1 = time.perf_counter()
+    state, outs = run_steps(step, state, batch, 2, 1)
+    loss = float(outs[-1][0])
+    step_ms = (time.perf_counter() - t1) * 1e3
+    counts = rk.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(visibility_capped_ids=1, wsr_table_grad=1, aa_forward=1,
+                aa_backward=1, shade=1, shade_backward=1, interp=2,
+                interp_backward=2, winner_rows=1)
+    require(counts == want, f"6d: a depth + normal step launches {counts}, "
+            f"expected {want}")
+    require(math.isfinite(loss), f"6d: non-finite loss {loss}")
+    print(f"[shaded] one depth + normal step of {batch['mvp'].shape[0]} "
+          f"views: launches {json.dumps({n: c for n, c in counts.items() if c})}"
+          f"; {step_ms:.1f} ms with its host read; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase 6d "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del state, step, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def shaded_alone(smi=""):
+    """Phase 6d by itself (the scene at 120 views of 512², ~10 s to mesh),
+    its numbers printed."""
+    from tssplat_torch.tools.synthetic import multisphere_scene
+    from tssplat_torch.train import validated_tile_k
+
+    geo, batch = multisphere_scene("cuda", 18, GSO_VIEWS, RES)
+
+    def report(name, label, err, ms, plain_ms, bnd):
+        print(f"[shaded] {name} ({label}): max_err={err:.3g} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})",
+              flush=True)
+
+    return shaded_phase(smi, report, geo, batch,
+                        validated_tile_k(geo, batch, RES))
 
 
 def slab_phase(report_slab, bench_pos, bench_nbrs, ms_pos, ms_nbrs, k, res,
@@ -1437,7 +1597,7 @@ def driver_phase(smi, views=120, res=512, device=None):
 
         # (c) the normal loss throughout (K2a: the shaded path), the depth
         # loss from iteration 4 (the step rebuilt then), Adam lr 2e-3, 12
-        # iterations
+        # iterations: K7 interpolates the normals 12 times, the positions 8
         built = []
         make_step = tt.make_train_step
 
@@ -1457,7 +1617,9 @@ def driver_phase(smi, views=120, res=512, device=None):
                 "c_depth_normal", 12, dict(
                     visibility_capped_ids=12 * chunks,
                     wsr_table_grad=12 * chunks, aa_forward=24 * chunks,
-                    aa_backward=12 * chunks), "view_chunk=8", *dn)
+                    aa_backward=12 * chunks,
+                    **_shaded_launches(12, 20, chunks)), "view_chunk=8",
+                *dn)
             require(f"view microbatching: {chunks} chunks of 8 views"
                     in text, "(c): view_chunk=8 did not run chunks of 8")
             # (c2) as shipped (view_chunk auto): the auto rule's chunks,
@@ -1467,7 +1629,8 @@ def driver_phase(smi, views=120, res=512, device=None):
                     visibility_capped_ids=12 * auto_chunks,
                     wsr_table_grad=12 * auto_chunks,
                     aa_forward=(24 if auto_chunks > 1 else 12) * auto_chunks,
-                    aa_backward=12 * auto_chunks), *dn)
+                    aa_backward=12 * auto_chunks,
+                    **_shaded_launches(12, 20, auto_chunks)), *dn)
             require(("view microbatching" in text) == (auto_chunks > 1),
                     f"(c2): not the auto rule's {auto_chunks} chunks")
         finally:
@@ -1628,6 +1791,22 @@ W3D_VIEWS = (("front", 0), ("front_right", 45), ("right", 90), ("back", 180),
              ("left", 270), ("front_left", 315))
 
 
+def wonder3d_mvps():
+    """The six orthographic cameras of tests/test_wonder3d.py:35-41,
+    ``diag(1.2, -1.2, -0.3, 1) @ look_at(2.5)`` at the azimuths of
+    W3D_VIEWS: (6,4,4) float32."""
+    import numpy as np
+    from tssplat_torch.ops.transform import look_at
+
+    mvps = []
+    for _, ang in W3D_VIEWS:
+        a = np.radians(ang)
+        mv = look_at(np.asarray([np.sin(a), 0.0, np.cos(a)]) * 2.5,
+                     [0, 0, 0], [0, 1, 0])
+        mvps.append((np.diag([1.2, -1.2, -0.3, 1.0]) @ mv).astype(np.float32))
+    return np.stack(mvps)
+
+
 def write_wonder3d_views(root, verts, faces, res=256, device=None):
     """A Wonder3D-layout directory of the surface (verts, faces) from
     numpy: ``mvp/{view}_mvp.npy`` (tests/test_wonder3d.py:35-41's
@@ -1641,18 +1820,12 @@ def write_wonder3d_views(root, verts, faces, res=256, device=None):
     from tssplat_torch.mesh.surface import triangle_edge_neighbors
     from tssplat_torch.ops.rasterize import (antialias_silhouette,
                                              rasterize_silhouette_with_rows)
-    from tssplat_torch.ops.transform import look_at, transform_pos
+    from tssplat_torch.ops.transform import transform_pos
 
     dev = resolve_device(device)
     for d in ("masked_colors1", "normals", "mvp", "imgs"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
-    mvps = []
-    for _, ang in W3D_VIEWS:
-        a = np.radians(ang)
-        mv = look_at(np.asarray([np.sin(a), 0.0, np.cos(a)]) * 2.5,
-                     [0, 0, 0], [0, 1, 0])
-        mvps.append((np.diag([1.2, -1.2, -0.3, 1.0]) @ mv).astype(np.float32))
-    mvps = np.stack(mvps)
+    mvps = wonder3d_mvps()
     faces = np.asarray(faces, np.int64)
     corners = torch.tensor(np.asarray(verts)[faces.reshape(-1)],
                            dtype=torch.float32, device=dev)
@@ -1685,17 +1858,32 @@ def _final_geometry(out, device):
 
 def _path_launches(F, B, res, iters, chunks=1, shaded=False):
     """The launches of ``iters`` iterations of a silhouette (or, with
-    ``shaded``, a normal or depth) step over B views in ``chunks`` chunks:
-    the visibility kernel the layout rule picks, K3 and K5 once a chunk,
-    K4 once, or twice where chunks are recomputed."""
+    ``shaded``, a normal) step over B views in ``chunks`` chunks: the
+    visibility kernel the layout rule picks, K3 and K5 once a chunk, K4
+    once, or twice where chunks are recomputed; with ``shaded`` K6-K8 as
+    ``_shaded_launches`` counts them."""
     from tssplat_torch.ops.binning import uses_capped_layout
     if uses_capped_layout(F, 11 if shaded else 14, B // chunks, res, res):
         vis = "visibility_capped_ids" if shaded else "visibility_capped"
     else:
         vis = "visibility"
     n = iters * chunks
-    return {vis: n, "wsr_table_grad": n,
-            "aa_forward": n * (2 if chunks > 1 else 1), "aa_backward": n}
+    out = {vis: n, "wsr_table_grad": n,
+           "aa_forward": n * (2 if chunks > 1 else 1), "aa_backward": n}
+    if shaded:                         # the normals: one interpolation
+        out.update(_shaded_launches(iters, iters, chunks))
+    return out
+
+
+def _shaded_launches(renders, interps, chunks=1):
+    """The launches of K6, K7 and K8 over ``renders`` shaded renders (each
+    in ``chunks`` chunks) that interpolate ``interps`` attributes in all:
+    K6 and K8 once a chunk's forward, K7 once an attribute, each forward
+    again in a recomputed chunk; the backwards once a chunk."""
+    fwd = chunks * (2 if chunks > 1 else 1)
+    return dict(shade=renders * fwd, winner_rows=renders * fwd,
+                shade_backward=renders * chunks, interp=interps * fwd,
+                interp_backward=interps * chunks)
 
 
 def image_to_3d_phase(smi, tmp, run, views, res, device=None,
@@ -2084,9 +2272,9 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
            "export_every=12", "checkpoint_every=12"]
     make_step = tt.make_train_step
 
-    def timed(label, iters, want_line, *over):
+    def timed(label, iters, want_line, steps_launch, *over):
         """run() with every step synchronised and timed, and the launches
-        inside the steps counted apart."""
+        inside the steps counted apart: ``steps_launch`` in each step."""
         step_ms, in_steps = [], []
 
         def spy(*args, **kw):
@@ -2100,7 +2288,8 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 after = rk.launch_counts()
-                in_steps.append(sum(after[k] - before[k] for k in after))
+                in_steps.append({k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]})
                 return out
             return timed_step
 
@@ -2115,22 +2304,28 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
         med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
         print(f"[texture] {label}: step {med:.2f} ms (median of "
               f"{len(step_ms) - 1} synchronised steps after the first, "
-              f"first {step_ms[0]:.1f} ms); launches inside the steps "
-              f"{sum(in_steps)}; all launches {counts}; {secs:.1f} s; on "
+              f"first {step_ms[0]:.1f} ms); launches inside a step "
+              f"{in_steps[-1]}; all launches {counts}; {secs:.1f} s; on "
               f"{smi}", flush=True)
         require(want_line in text, f"{label}: no '{want_line}' line")
-        require(sum(in_steps) == 0, f"{label}: {in_steps} launches inside "
-                f"the steps")
+        require(all(n == steps_launch for n in in_steps),
+                f"{label}: launches inside the steps {in_steps}, expected "
+                f"{steps_launch} in each")
         require(_falls(logged), f"{label}: img_loss did not fall {logged}")
         return counts, out, text
 
-    # (a) the exact path
-    counts, out, text = timed("tex_a_exact", 24, "exact texture fast path")
+    # (a) the exact path: K8 (the colour antialias's rows) in each step
+    counts, out, text = timed("tex_a_exact", 24, "exact texture fast path",
+                              {"winner_rows": 1})
     n_vis = sum(counts[k] for k in vis_kernels)
     require(n_vis == views + 1, f"(a): {n_vis} visibility launches, "
             f"expected {views} (the cache) + 1 (the UV bake)")
-    require(all(counts[k] == 0 for k in counts if k not in vis_kernels),
-            f"(a): launches {counts}")
+    # the cache and the bake shade their winners and interpolate the
+    # positions once a render
+    want = dict(shade=views + 1, interp=views + 1, winner_rows=24)
+    require(all(counts[k] == want.get(k, 0) for k in counts
+                if k not in vis_kernels), f"(a): launches {counts}, "
+            f"expected {want} besides the visibility")
     mat_dir = f"{out}/final/material"
     have = set(os.listdir(mat_dir))
     need = {"material.npz", "texture_kd.png", "mesh.obj", "material.mtl"}
@@ -2144,7 +2339,7 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
           flush=True)
 
     # (b) the sampled path, cached
-    _, _, text = timed("tex_b_sampled", 24, "texture cache:",
+    _, _, text = timed("tex_b_sampled", 24, "texture cache:", {},
                        "texture_sample_px=4096")
     require("exact texture" not in text, "(b): took the exact path")
 

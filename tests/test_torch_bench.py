@@ -354,7 +354,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
 
 def test_smoke_checks_rehearse_on_the_cpu():
     """_smoke_checks runs every comparison on the CPU (where each wrapper
-    is its plain version) and names the six kernels."""
+    is its plain version) and names every kernel."""
     out = bench._smoke_checks("cpu")
     assert set(out) == {fn.__name__ for fn in rk.KERNELS}
     assert all(e == 0.0 for e in out.values())

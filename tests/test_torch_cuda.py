@@ -15,6 +15,8 @@ from tssplat_torch.ops.binning import bin_faces, bin_faces_capped, capacity
 from tssplat_torch.ops.transform import fibonacci_views, transform_pos
 from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
 from tssplat_torch.tools.aa_cases import CASE_NAMES as AA_CASE_NAMES, aa_cases
+from tssplat_torch.tools.shade_cases import (CASE_NAMES as SHADE_CASE_NAMES,
+                                             check_shaded, shade_cases)
 from tssplat_torch.tools.vis_cases import CASE_NAMES, capped_cases
 from tssplat_torch.tools.wsr_cases import (CASE_NAMES as WSR_CASE_NAMES,
                                            rows_agree, wsr_cases)
@@ -756,3 +758,30 @@ def test_native_topology_matches_numpy_on_the_card_machine():
     np.testing.assert_array_equal(
         surface.triangle_edge_neighbors(faces),
         surface.triangle_edge_neighbors(faces, use_native=False))
+
+
+@pytest.fixture(scope="module")
+def shaded_corner_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return shade_cases(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SHADE_CASE_NAMES)
+def test_shaded_path_kernels_match_plain(shaded_corner_cases, name):
+    """K6, K7 and K8 against their plain versions on the inputs that corner
+    their runs and viewports (tools/shade_cases.py): the sphere with
+    16-byte and with scalar runs, every pixel background, one face over
+    whole tiles, slabs with rows above and below the image, per-view
+    attributes of 5 channels. The forwards and K7's d rast equal their
+    plain versions to the bit (the same operations in the same order,
+    built without FMA contraction); the table gradients each within 1e-5
+    of the sum of |values| its row adds (float32 atomics in any order)."""
+    before = rk.launch_counts()
+    errs = check_shaded(shaded_corner_cases[name],
+                        torch.Generator(device="cuda").manual_seed(4))
+    after = rk.launch_counts()
+    assert set(errs) == {"shade", "shade_backward", "interp",
+                         "interp_backward", "winner_rows"}
+    assert all(after[k] > before[k] for k in errs)

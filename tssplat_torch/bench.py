@@ -303,20 +303,22 @@ def scaling(device: DeviceLike = None, world: Optional[int] = None) -> None:
 
 
 def _smoke_checks(device: DeviceLike) -> dict:
-    """Each of the six kernels against its plain version on
+    """Each kernel against its plain version on
     ``tet_sphere(0.12, radius=0.3)`` from 2 views of 128², with
     ``chip_smoke.py`` phase 3's tolerances: K1's ids and aux rows equal
     and its z and rows within 1e-6; K2b and K2a (the capped layout, built
     by ``bin_faces_capped`` at the default capacity) ids and z to the bit
     and rows equal to the walk; K4 and K5 equal; K3 within rtol 1e-5 (and
     1e-6 of the largest |value|) on K5's d g6 and on a seeded cotangent
-    at every foreground pixel. Returns {kernel: max abs error, or None
-    where a check failed}."""
+    at every foreground pixel; K6-K8 on K1's winners as
+    ``tools/shade_cases.py check_shaded`` holds them. Returns {kernel: max
+    abs error, or None where a check failed}."""
     from .geometry.tet_geometry import TetMeshGeometry
     from .mesh.spheres import tet_sphere
     from .mesh.tetmesh import TetMesh
     from .ops.binning import bin_faces, bin_faces_capped, capacity
     from .ops.transform import fibonacci_views, transform_pos
+    from .tools.shade_cases import check_shaded, shaded_inputs
 
     dev = resolve_device(device)
     geo = TetMeshGeometry(dict(use_smooth_barrier=True),
@@ -377,12 +379,17 @@ def _smoke_checks(device: DeviceLike) -> dict:
             break
         e3 = max(e3, err([g], [w]))
     out["wsr_table_grad"] = e3
+    try:
+        out.update(check_shaded(shaded_inputs(pos, ids, nbrs, gen), gen))
+    except AssertionError:
+        out.update(dict.fromkeys(("shade", "shade_backward", "interp",
+                                  "interp_backward", "winner_rows")))
     return out
 
 
 def smoke() -> None:
     """Seconds-scale kernel smoke (``bench.py:320-414``): build the
-    kernels of ``tssplat_torch/csrc`` and hold each of the six against its
+    kernels of ``tssplat_torch/csrc`` and hold each of them against its
     plain version on the card (``_smoke_checks``). Prints
     ``cuda_kernel_smoke`` 1.0 or 0.0 and exits 1 on any mismatch. Unlike
     bench.py, which prints ``skipped-cpu`` there, it raises without a

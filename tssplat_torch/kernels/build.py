@@ -35,6 +35,9 @@ SOURCES = {
     "wsr_grad": "wsr_grad.cu",
     "aa_fwd": "aa_fwd.cu",
     "aa_bwd": "aa_bwd.cu",
+    "shade": "shade.cu",
+    "interp": "interp.cu",
+    "winner_rows": "winner_rows.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,6 +57,13 @@ SIGNATURES = {
     "tss_wsr_grad_launch": ("wsr_grad", [_VOID] * 2 + [_INT] * 4 + [_VOID] * 2),
     "tss_aa_fwd_launch": ("aa_fwd", [_VOID] * 4 + [_INT] * 5 + [_VOID] * 2),
     "tss_aa_bwd_launch": ("aa_bwd", [_VOID] * 5 + [_INT] * 5 + [_VOID] * 2),
+    "tss_shade_launch": ("shade", [_VOID] * 2 + [_INT] * 6 + [_VOID] * 2),
+    "tss_shade_grad_launch": ("shade", [_VOID] * 3 + [_INT] * 6 + [_VOID] * 2),
+    "tss_interp_launch": ("interp", [_VOID] * 2 + [_INT] * 6 + [_VOID] * 2),
+    "tss_interp_grad_launch": ("interp",
+                               [_VOID] * 3 + [_INT] * 6 + [_VOID] * 3),
+    "tss_winner_rows_launch": ("winner_rows",
+                               [_VOID] * 3 + [_INT] * 4 + [_VOID] * 5),
 }
 
 

@@ -7,9 +7,18 @@ PyTorch version (counterpart of ``tssplat_tpu/ops/pallas_raster.py``).
   K3  ``wsr_table_grad``         csrc/wsr_grad.cu    <- _wsr_grad_kernel
   K4  ``aa_forward``             csrc/aa_fwd.cu      <- _aa_halo_fwd_kernel
   K5  ``aa_backward``            csrc/aa_bwd.cu      <- _aa_halo_bwd_kernel
+  K6  ``shade``, ``shade_backward``      csrc/shade.cu        <- none
+  K7  ``interp``, ``interp_backward``    csrc/interp.cu       <- none
+  K8  ``winner_rows``                    csrc/winner_rows.cu  <- none
 
 (K4 and K5 also take the place of the XLA border pass beside their TPU
-kernels.)
+kernels. K6-K8 replace no Pallas kernel: JAX runs the shading of the
+winners, the attribute interpolation and the antialias pass's row gather
+as XLA code, ``_shade_rast``, ``interpolate`` and ``_gather_tri_screen``
+of rasterize.py. On the card each read its winners' face rows straight
+from the per-face table, where PyTorch would gather dense per-pixel rows
+and run a chain of elementwise kernels over them. Their plain versions
+are that chain: the port's CPU path.)
 
 Each kernel renders a horizontal slab of rows as well as a whole image (row-
 slab spatial sharding, ``parallel/spatial.py``): its H rows are absolute
@@ -44,9 +53,10 @@ import torch
 
 from ..kernels import build
 from ..utils.debug import check_kernel_outputs
+from ..utils.profiling import span
 from .binning import (CAP_TILE_H, CAP_TILE_W, CappedBins, FaceBins, TILE_H,
                       TILE_W)
-from .screen import ndc_center, pixel_centers
+from .screen import AREA_EPS, W_EPS, edge, ndc_center, pixel_centers
 
 _INF = float("inf")
 
@@ -681,8 +691,346 @@ def _check_aa(ids, z, g6, gaux):
     _check(gaux, "gaux", torch.float32, (B, 4, H, W), dev)
 
 
+# ---------------------------------------------------------------------------
+# K6 / K7 / K8 — the shaded path's per-pixel work on the winners' face rows
+# ---------------------------------------------------------------------------
+
+class _RowGather(torch.autograd.Function):
+    """Per-pixel rows of a per-face table at the foreground pixels only:
+    the backward adds each foreground pixel's cotangent into its face's
+    row (``index_add_``) and never touches the background, which a dense
+    gather's backward sums, millions of zero rows, into one dummy row."""
+
+    @staticmethod
+    def forward(ctx, tbl, ids):
+        B, F, C = tbl.shape
+        fg = ids > 0
+        bidx = torch.arange(B, device=ids.device).view(B, 1, 1)
+        # each boolean mask waits for the device to count its pixels
+        with span("tssplat.sync.row_gather"):
+            t = (bidx * F + ids.long() - 1)[fg]          # (n_fg,)
+        out = tbl.new_zeros((*ids.shape, C))
+        with span("tssplat.sync.row_gather"):
+            out[fg] = tbl.reshape(B * F, C)[t]
+        ctx.save_for_backward(fg, t)
+        ctx.tbl_shape = tbl.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        fg, t = ctx.saved_tensors
+        B, F, C = ctx.tbl_shape
+        with span("tssplat.sync.row_gather"):
+            ct_fg = ct[fg]
+        d = ct.new_zeros((B * F, C)).index_add_(0, t, ct_fg)
+        return d.view(B, F, C), None
+
+
+def _row_gather(tbl: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Per-pixel rows (B,H,W,C) of the (B,F,C) face table at the winners
+    ids+1 (B,H,W); background pixels get an all-zero row
+    (``_row_gather``, rasterize.py:517). The plain versions of K6-K8 gather
+    with it: on the CPU it is the shaded path's gather, differentiable."""
+    return _RowGather.apply(tbl, ids)
+
+
+def _fold_rows(vals: torch.Tensor, view: torch.Tensor, ids: torch.Tensor,
+               B: int, F: int) -> torch.Tensor:
+    """Per-pixel rows ``vals`` (n,C) of the pixels of views ``view`` with
+    winners ``ids`` (id+1) summed into their faces' rows in float64
+    (``index_add_``, as K3's plain version folds): (B,F,C) in vals' type."""
+    out = torch.zeros((B * F, vals.shape[-1]), dtype=torch.float64,
+                      device=vals.device)
+    out.index_add_(0, view * F + ids.long() - 1, vals.double())
+    return out.to(vals.dtype).view(B, F, -1)
+
+
+def shade(ids: torch.Tensor, tbl: torch.Tensor, viewport=None
+          ) -> torch.Tensor:
+    """K6: rast (B,H,W,4) = (u, v, z/w, id+1) of each pixel's winner ids+1
+    (B,H,W) int32, from the per-face screen table tbl (B,F,12) = (ax,bx,cx,
+    ay,by,cy, z0,z1,z2, iw0,iw1,iw2): barycentrics perspective-corrected by
+    1/w, zero on background, at the pixel centres of the absolute rows of
+    ``viewport`` (row0, full_h). Its gradient is ``shade_backward``."""
+    if not _on_cuda(tbl, "shade"):
+        return shade_plain(ids, tbl, viewport)
+    B, H, W = ids.shape
+    F = tbl.shape[1]
+    dev = tbl.device
+    _check(ids, "ids", torch.int32, (B, H, W), dev)
+    _check(tbl, "tbl", torch.float32, (B, F, 12))
+    row0, full_h = _viewport(viewport, H)
+    rast = torch.empty((B, H, W, 4), dtype=torch.float32, device=dev)
+    _launch("tss_shade_launch", _ptr(ids), _ptr(tbl), B, H, W, F, row0,
+            full_h, _ptr(rast))
+    shade.launches += 1
+    check_kernel_outputs("shade", rast)
+    return rast
+
+
+def shade_plain(ids: torch.Tensor, tbl: torch.Tensor, viewport=None
+                ) -> torch.Tensor:
+    """Plain version of K6 (``_shade_rast``, rasterize.py:688),
+    differentiable in tbl: one row gather of the table at the winners, the
+    barycentrics recomputed from it, the 1/w correction."""
+    g = _row_gather(tbl, ids)                            # (B,H,W,12)
+    H, W = ids.shape[1:]
+    row0, full_h = _viewport(viewport, H)
+    px, py = pixel_centers((H, W), tbl.device, tbl.dtype, row0, full_h)
+
+    ax, bx, cx = g[..., 0], g[..., 1], g[..., 2]
+    ay, by, cy = g[..., 3], g[..., 4], g[..., 5]
+    area = edge(ax, ay, bx, by, cx, cy)
+    safe_area = torch.where(torch.abs(area) > AREA_EPS, area,
+                            torch.ones_like(area))
+    l0 = edge(bx, by, cx, cy, px, py) / safe_area
+    l1 = edge(cx, cy, ax, ay, px, py) / safe_area
+    l2 = edge(ax, ay, bx, by, px, py) / safe_area
+
+    d0, d1, d2 = l0 * g[..., 9], l1 * g[..., 10], l2 * g[..., 11]
+    s = d0 + d1 + d2
+    s = torch.where(torch.abs(s) > W_EPS, s, torch.ones_like(s))
+    u = d0 / s
+    v = d1 / s
+    zbuf = l0 * g[..., 6] + l1 * g[..., 7] + l2 * g[..., 8]
+    fg = (ids > 0).to(tbl.dtype)
+    return torch.stack([u * fg, v * fg, zbuf * fg, ids.to(tbl.dtype)],
+                       dim=-1)
+
+
+def shade_backward(ids: torch.Tensor, tbl: torch.Tensor, ct: torch.Tensor,
+                   viewport=None) -> torch.Tensor:
+    """K6's backward: d tbl (B,F,12) of ``shade`` under the cotangent ct
+    (B,H,W,4) of rast; a pixel counts where its id is > 0 and its
+    cotangent of (u, v, z) is not all 0 (channel 3, the id, has none). The
+    C entry zeroes the table."""
+    if not _on_cuda(ct, "shade_backward"):
+        return shade_backward_plain(ids, tbl, ct, viewport)
+    B, H, W = ids.shape
+    F = tbl.shape[1]
+    dev = tbl.device
+    _check(ids, "ids", torch.int32, (B, H, W), dev)
+    _check(tbl, "tbl", torch.float32, (B, F, 12))
+    _check(ct, "ct", torch.float32, (B, H, W, 4), dev)
+    row0, full_h = _viewport(viewport, H)
+    out = torch.empty((B, F, 12), dtype=torch.float32, device=dev)
+    _launch("tss_shade_grad_launch", _ptr(ids), _ptr(tbl), _ptr(ct), B, H,
+            W, F, row0, full_h, _ptr(out))
+    shade_backward.launches += 1
+    check_kernel_outputs("shade_backward", out)
+    return out
+
+
+def _shade_grad(r, px, py, gu, gv, gz):
+    """d (u, v, z) / d row at pixels (px, py) of faces with rows r (n,12),
+    under the cotangents (gu, gv, gz): (n,12) in the table's channel order.
+    The forward's area, edges and barycentrics are recomputed as K6
+    computes them, then their backward; every operation in the order of
+    csrc/shade.cu's ``row_grad``."""
+    ax, bx, cx, ay, by, cy, z0, z1, z2, w0, w1, w2 = r.unbind(-1)
+    one, zero = torch.ones_like(px), torch.zeros_like(px)
+    area = edge(ax, ay, bx, by, cx, cy)
+    ok_a = torch.abs(area) > AREA_EPS
+    sa = torch.where(ok_a, area, one)
+    l0 = edge(bx, by, cx, cy, px, py) / sa
+    l1 = edge(cx, cy, ax, ay, px, py) / sa
+    l2 = edge(ax, ay, bx, by, px, py) / sa
+    d0, d1, d2 = l0 * w0, l1 * w1, l2 * w2
+    s = d0 + d1 + d2
+    ok_s = torch.abs(s) > W_EPS
+    s = torch.where(ok_s, s, one)
+    u, v = d0 / s, d1 / s
+    gs = torch.where(ok_s, -(gu * u + gv * v) / s, zero)
+    gd0, gd1, gd2 = gu / s + gs, gv / s + gs, gs
+    # the cotangents of the edge values, and of the area where it divides
+    ge0 = (gd0 * w0 + gz * z0) / sa
+    ge1 = (gd1 * w1 + gz * z1) / sa
+    ge2 = (gd2 * w2 + gz * z2) / sa
+    ga = torch.where(ok_a, -(ge0 * l0 + ge1 * l1 + ge2 * l2), zero)
+    return torch.stack([
+        ge1 * (py - cy) + ge2 * (by - py) + ga * (by - cy),
+        ge0 * (cy - py) + ge2 * (py - ay) + ga * (cy - ay),
+        ge0 * (py - by) + ge1 * (ay - py) + ga * (ay - by),
+        ge1 * (cx - px) + ge2 * (px - bx) + ga * (cx - bx),
+        ge0 * (px - cx) + ge2 * (ax - px) + ga * (ax - cx),
+        ge0 * (bx - px) + ge1 * (px - ax) + ga * (bx - ax),
+        gz * l0, gz * l1, gz * l2,
+        gd0 * l0, gd1 * l1, gd2 * l2], dim=-1)
+
+
+def _shade_grad_pixels(ids, tbl, ct, viewport=None):
+    """K6's backward before its fold: the rows (n,12) of the counted pixels
+    (``_shade_grad``), with their views (n,) and ids+1 (n,)."""
+    H, W = ids.shape[1:]
+    row0, full_h = _viewport(viewport, H)
+    g = ct[..., :3]
+    act = (ids > 0) & (g != 0).any(-1)
+    b, r, c = act.nonzero(as_tuple=True)
+    f = ids[act]
+    px = ndc_center(c.to(tbl.dtype), W)
+    py = ndc_center((r + row0).to(tbl.dtype), full_h)
+    gu, gv, gz = g[act].unbind(-1)
+    return (_shade_grad(tbl.detach()[b, f.long() - 1], px, py, gu, gv, gz),
+            b, f)
+
+
+def shade_backward_plain(ids: torch.Tensor, tbl: torch.Tensor,
+                         ct: torch.Tensor, viewport=None) -> torch.Tensor:
+    """Plain version of K6's backward: each counted pixel's gradient of its
+    face's row (``_shade_grad``), summed per face in float64."""
+    return _fold_rows(*_shade_grad_pixels(ids, tbl, ct, viewport),
+                      ids.shape[0], tbl.shape[1])
+
+
+def _check_attr(rast, tbl, name):
+    B, H, W, _ = rast.shape
+    dev = tbl.device
+    _check(rast, "rast", torch.float32, (B, H, W, 4), dev)
+    _check(tbl, name, torch.float32)
+    if tbl.dim() != 3 or tbl.shape[0] not in (1, B) or tbl.shape[2] % 3:
+        raise ValueError(f"{name}: expected (1 or {B}, F, 3C), got "
+                         f"{tuple(tbl.shape)}")
+    return B, H, W, tbl.shape[1], tbl.shape[2] // 3, int(tbl.shape[0] > 1)
+
+
+def interp(rast: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """K7: the attributes (B,H,W,C) = u*a0 + v*a1 + (1-u-v)*a2 at the
+    winners of rast (B,H,W,4), from the per-face table tbl (1,F,3C), shared
+    by the views, or (B,F,3C), one per view (row f = corners 3f..3f+2 of
+    the corner layout); zero on background. Its gradient is
+    ``interp_backward``."""
+    if not _on_cuda(tbl, "interp"):
+        return interp_plain(rast, tbl)
+    B, H, W, F, C, per_view = _check_attr(rast, tbl, "tbl")
+    out = torch.empty((B, H, W, C), dtype=torch.float32, device=tbl.device)
+    _launch("tss_interp_launch", _ptr(rast), _ptr(tbl), B, H, W, F, C,
+            per_view, _ptr(out))
+    interp.launches += 1
+    check_kernel_outputs("interp", out)
+    return out
+
+
+def interp_plain(rast: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7 (``interpolate``, rasterize.py:842, corner
+    layout), differentiable in tbl and in rast's u and v: one row gather of
+    the table at the winners, then the barycentric blend."""
+    ids = rast[..., 3].detach().to(torch.int32)
+    B = ids.shape[0]
+    F, C = tbl.shape[1], tbl.shape[2] // 3
+    a = _row_gather(tbl.expand(B, F, 3 * C), ids).view(*ids.shape, 3, C)
+    u = rast[..., 0:1]
+    v = rast[..., 1:2]
+    out = a[..., 0, :] * u + a[..., 1, :] * v + a[..., 2, :] * (1.0 - u - v)
+    return out * (ids > 0)[..., None].to(out.dtype)
+
+
+def interp_backward(rast: torch.Tensor, tbl: torch.Tensor, ct: torch.Tensor):
+    """K7's backward under the cotangent ct (B,H,W,C): (d tbl (B,F,3C),
+    one row per view even where tbl is shared; d rast (B,H,W,4) = (d u,
+    d v, 0, 0), zero on background). A pixel counts towards d tbl where
+    its id is > 0 and its cotangent is not all 0. The C entry zeroes
+    d tbl."""
+    if not _on_cuda(ct, "interp_backward"):
+        return interp_backward_plain(rast, tbl, ct)
+    B, H, W, F, C, per_view = _check_attr(rast, tbl, "tbl")
+    dev = tbl.device
+    _check(ct, "ct", torch.float32, (B, H, W, C), dev)
+    d_tbl = torch.empty((B, F, 3 * C), dtype=torch.float32, device=dev)
+    d_rast = torch.empty((B, H, W, 4), dtype=torch.float32, device=dev)
+    _launch("tss_interp_grad_launch", _ptr(rast), _ptr(tbl), _ptr(ct), B, H,
+            W, F, C, per_view, _ptr(d_tbl), _ptr(d_rast))
+    interp_backward.launches += 1
+    check_kernel_outputs("interp_backward", d_tbl, d_rast)
+    return d_tbl, d_rast
+
+
+def _channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the last dim in index order, as K7 adds channels."""
+    s = x[..., 0]
+    for c in range(1, x.shape[-1]):
+        s = s + x[..., c]
+    return s
+
+
+def _interp_grad_pixels(rast, tbl, ct):
+    """K7's backward before its fold: d rast, and the attribute rows
+    (n,3C) = (ct u, ct v, ct (1-u-v)) of the counted pixels with their
+    views (n,) and ids+1 (n,)."""
+    ids = rast[..., 3].to(torch.int32)
+    B, H, W, C = ct.shape
+    F = tbl.shape[1]
+    fg = ids > 0
+    with torch.no_grad():
+        a = _row_gather(tbl.detach().expand(B, F, 3 * C), ids) \
+            .view(B, H, W, 3, C)
+    u, v = rast[..., 0:1], rast[..., 1:2]
+    s0, s1, s2 = (_channel_sum(ct * a[..., k, :]) for k in range(3))
+    zero = torch.zeros((), dtype=ct.dtype, device=ct.device)
+    du, dv = torch.where(fg, s0 - s2, zero), torch.where(fg, s1 - s2, zero)
+    d_rast = torch.stack([du, dv, torch.zeros_like(du), torch.zeros_like(du)],
+                         dim=-1)
+    act = fg & (ct != 0).any(-1)
+    vals = torch.cat([ct * u, ct * v, ct * (1.0 - u - v)], dim=-1)[act]
+    return d_rast, vals, act.nonzero()[:, 0], ids[act]
+
+
+def interp_backward_plain(rast: torch.Tensor, tbl: torch.Tensor,
+                          ct: torch.Tensor):
+    """Plain version of K7's backward: d u = sum_c ct a0 - sum_c ct a2 and
+    d v = sum_c ct a1 - sum_c ct a2 at each foreground pixel; the
+    attributes' cotangents (ct u, ct v, ct (1-u-v)) of each counted pixel
+    summed per (view, face) in float64."""
+    d_rast, vals, view, ids = _interp_grad_pixels(rast, tbl, ct)
+    return _fold_rows(vals, view, ids, ct.shape[0], tbl.shape[1]), d_rast
+
+
+def winner_rows(rast: torch.Tensor, tbl6: torch.Tensor,
+                edge_nbrs: torch.Tensor):
+    """K8: K4/K5's inputs on the shaded path, without gradient: ids
+    (B,H,W) int32 and z (B,H,W) of rast (B,H,W,4), and the winners' rows
+    channel-major, g6 (B,6,H,W) from tbl6 (B,F,6) = (ax,bx,cx,ay,by,cy) and
+    gaux (B,4,H,W) = (the edge neighbours edge_nbrs (F,3) int64 as floats,
+    the sign of the face's screen area); rows zero on background."""
+    if not _on_cuda(tbl6, "winner_rows"):
+        return winner_rows_plain(rast, tbl6, edge_nbrs)
+    B, H, W, _ = rast.shape
+    F = tbl6.shape[1]
+    dev = tbl6.device
+    _check(rast, "rast", torch.float32, (B, H, W, 4), dev)
+    _check(tbl6, "tbl6", torch.float32, (B, F, 6))
+    _check(edge_nbrs, "edge_nbrs", torch.int64, (F, 3), dev)
+    ids = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    z = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    g6 = torch.empty((B, 6, H, W), dtype=torch.float32, device=dev)
+    gaux = torch.empty((B, 4, H, W), dtype=torch.float32, device=dev)
+    _launch("tss_winner_rows_launch", _ptr(rast), _ptr(tbl6),
+            _ptr(edge_nbrs), B, H, W, F, _ptr(ids), _ptr(z), _ptr(g6),
+            _ptr(gaux))
+    winner_rows.launches += 1
+    check_kernel_outputs("winner_rows", z, g6, gaux)
+    return ids, z, g6, gaux
+
+
+def winner_rows_plain(rast: torch.Tensor, tbl6: torch.Tensor,
+                      edge_nbrs: torch.Tensor):
+    """Plain version of K8: one row gather of the table widened by the
+    edge neighbours and the area's sign, put channel-major."""
+    ids = rast[..., 3].detach().to(torch.int32).contiguous()
+    z = rast[..., 2].detach().contiguous()
+    B, F = tbl6.shape[0], edge_nbrs.shape[0]
+    with torch.no_grad():
+        t = tbl6.detach()
+        area = edge(t[..., 0], t[..., 3], t[..., 1], t[..., 4], t[..., 2],
+                    t[..., 5])
+        nb = edge_nbrs.to(t.dtype).unsqueeze(0).expand(B, F, 3)
+        rows = _row_gather(torch.cat([t, nb, torch.sign(area)[..., None]],
+                                     dim=-1), ids).permute(0, 3, 1, 2)
+    return ids, z, rows[:, :6].contiguous(), rows[:, 6:].contiguous()
+
+
 KERNELS = (visibility, visibility_capped_ids, visibility_capped,
-           wsr_table_grad, aa_forward, aa_backward)
+           wsr_table_grad, aa_forward, aa_backward, shade, shade_backward,
+           interp, interp_backward, winner_rows)
 
 
 def reset_launch_counts() -> None:

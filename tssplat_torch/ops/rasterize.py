@@ -43,6 +43,14 @@ per-pixel cotangents into per-face rows (K3) and lets autograd take them
 back through the per-face screen table to the clip positions. The
 antialias pass is one autograd.Function: K4 forward, K5 backward. Inputs
 are in the corner layout (pos_clip (B,3F,4), face f = rows 3f..3f+2).
+
+On the shaded path (``rasterize``, ``interpolate``, ``antialias_rows``) a
+CUDA tensor takes K6 (the shading of the winners), K7 (the interpolation)
+and K8 (the antialias rows), each reading its winners' rows straight from
+the per-face table, K6 and K7 as autograd.Functions with a kernel backward;
+a CPU tensor takes their plain versions, a row gather of the table
+(``raster_kernels._row_gather``) and PyTorch's chain, differentiable by
+autograd.
 """
 
 from __future__ import annotations
@@ -123,44 +131,6 @@ def screen_xy_table(pos_clip: torch.Tensor, F: int) -> torch.Tensor:
     return torch.cat([sx.view(B, F, 3), sy.view(B, F, 3)], dim=-1)
 
 
-class _RowGather(torch.autograd.Function):
-    """Per-pixel rows of a per-face table at the foreground pixels only:
-    the backward adds each foreground pixel's cotangent into its face's
-    row (``index_add_``) and never touches the background, which a dense
-    gather's backward sums, millions of zero rows, into one dummy row."""
-
-    @staticmethod
-    def forward(ctx, tbl, ids):
-        B, F, C = tbl.shape
-        fg = ids > 0
-        bidx = torch.arange(B, device=ids.device).view(B, 1, 1)
-        # each boolean mask waits for the device to count its pixels
-        with span("tssplat.sync.row_gather"):
-            t = (bidx * F + ids.long() - 1)[fg]          # (n_fg,)
-        out = tbl.new_zeros((*ids.shape, C))
-        with span("tssplat.sync.row_gather"):
-            out[fg] = tbl.reshape(B * F, C)[t]
-        ctx.save_for_backward(fg, t)
-        ctx.tbl_shape = tbl.shape
-        return out
-
-    @staticmethod
-    def backward(ctx, ct):
-        fg, t = ctx.saved_tensors
-        B, F, C = ctx.tbl_shape
-        with span("tssplat.sync.row_gather"):
-            ct_fg = ct[fg]
-        d = ct.new_zeros((B * F, C)).index_add_(0, t, ct_fg)
-        return d.view(B, F, C), None
-
-
-def _row_gather(tbl: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Per-pixel rows (B,H,W,C) of the (B,F,C) face table at the winners
-    ids+1 (B,H,W); background pixels get an all-zero row
-    (``_row_gather``, rasterize.py:517)."""
-    return _RowGather.apply(tbl, ids)
-
-
 class _WinnerRows(torch.autograd.Function):
     """Value: the visibility kernel's winner rows g6. Gradient: per-pixel
     cotangents summed into per-face rows by K3 (``_wsr_bwd``,
@@ -233,41 +203,48 @@ def rasterize_silhouette_with_rows(pos_clip: torch.Tensor,
     return ids, z, g6, gaux, n_drop
 
 
-def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
-                resolution: Tuple[int, int], viewport=None) -> torch.Tensor:
-    """(u, v, z/w, id+1) of each pixel's winner (``_shade_rast``,
-    rasterize.py:688): barycentrics recomputed from one row gather of the
-    per-face screen table, perspective-corrected by 1/w, differentiable in
-    pos_clip; zero on background."""
+class _Shade(torch.autograd.Function):
+    """K6: the shading of the winners from the per-face screen table,
+    forward and backward; autograd takes the table's gradient on to
+    pos_clip."""
+
+    @staticmethod
+    def forward(ctx, tbl, ids, viewport):
+        ctx.save_for_backward(tbl, ids)
+        ctx.viewport = viewport
+        return rk.shade(ids, tbl, viewport)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tbl, ids = ctx.saved_tensors
+        return rk.shade_backward(ids, tbl, ct.contiguous(),
+                                 ctx.viewport), None, None
+
+
+def _shade_table(pos_clip: torch.Tensor) -> torch.Tensor:
+    """Differentiable per-face screen table (B,F,12) = (ax,bx,cx, ay,by,cy,
+    z0,z1,z2, iw0,iw1,iw2) of the corner layout: the C = 12 table of
+    ``_build_screen_table`` (rasterize.py:483), 1/w zero where w is
+    invalid."""
     B = pos_clip.shape[0]
     F = pos_clip.shape[1] // 3
     sx, sy, sz, valid = screen(pos_clip)
     iw = torch.where(valid, 1.0 / torch.clamp_min(pos_clip[..., 3], W_EPS),
                      torch.zeros_like(sx))
-    tbl = torch.cat([a.view(B, F, 3) for a in (sx, sy, sz, iw)], dim=-1)
-    g = _row_gather(tbl, ids)                            # (B,H,W,12)
-    row0, full_h = viewport if viewport is not None else (0, None)
-    px, py = pixel_centers(resolution, pos_clip.device, pos_clip.dtype, row0,
-                           full_h)
+    return torch.cat([a.view(B, F, 3) for a in (sx, sy, sz, iw)], dim=-1)
 
-    ax, bx, cx = g[..., 0], g[..., 1], g[..., 2]
-    ay, by, cy = g[..., 3], g[..., 4], g[..., 5]
-    area = edge(ax, ay, bx, by, cx, cy)
-    safe_area = torch.where(torch.abs(area) > AREA_EPS, area,
-                            torch.ones_like(area))
-    l0 = edge(bx, by, cx, cy, px, py) / safe_area
-    l1 = edge(cx, cy, ax, ay, px, py) / safe_area
-    l2 = edge(ax, ay, bx, by, px, py) / safe_area
 
-    d0, d1, d2 = l0 * g[..., 9], l1 * g[..., 10], l2 * g[..., 11]
-    s = d0 + d1 + d2
-    s = torch.where(torch.abs(s) > W_EPS, s, torch.ones_like(s))
-    u = d0 / s
-    v = d1 / s
-    zbuf = l0 * g[..., 6] + l1 * g[..., 7] + l2 * g[..., 8]
-    fg = (ids > 0).to(pos_clip.dtype)
-    return torch.stack([u * fg, v * fg, zbuf * fg, ids.to(pos_clip.dtype)],
-                       dim=-1)
+def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
+                viewport=None) -> torch.Tensor:
+    """(u, v, z/w, id+1) of each pixel's winner (``_shade_rast``,
+    rasterize.py:688): barycentrics recomputed from the winner's row of
+    the per-face screen table, perspective-corrected by 1/w,
+    differentiable in pos_clip; zero on background. K6 on the card; its
+    plain version (a row gather and PyTorch's chain) on the CPU."""
+    tbl = _shade_table(pos_clip)
+    if ids.is_cuda:
+        return _Shade.apply(tbl, ids, viewport)
+    return rk.shade_plain(ids, tbl, viewport)
 
 
 def visibility_ids(pos_clip: torch.Tensor, resolution: Tuple[int, int],
@@ -298,7 +275,7 @@ def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
     (u, v, z/w, id+1), n_drop (B,))."""
     ids, n_drop = vis if vis is not None else \
         visibility_ids(pos_clip, resolution, k, viewport)
-    return _shade_rast(pos_clip, ids, resolution, viewport), n_drop
+    return _shade_rast(pos_clip, ids, viewport), n_drop
 
 
 def rasterize_silhouette(pos_clip: torch.Tensor,
@@ -317,20 +294,35 @@ def rasterize_silhouette(pos_clip: torch.Tensor,
     return rast, n_drop
 
 
+class _Interp(torch.autograd.Function):
+    """K7: the barycentric blend of the winners' attribute rows, forward
+    and backward; a shared table's per-view rows are summed over the
+    views."""
+
+    @staticmethod
+    def forward(ctx, tbl, rast):
+        ctx.save_for_backward(tbl, rast)
+        return rk.interp(rast, tbl)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tbl, rast = ctx.saved_tensors
+        d_tbl, d_rast = rk.interp_backward(rast, tbl, ct.contiguous())
+        if tbl.shape[0] == 1:
+            d_tbl = d_tbl.sum(0, keepdim=True)
+        return d_tbl, d_rast
+
+
 def interpolate(attr: torch.Tensor, rast: torch.Tensor) -> torch.Tensor:
     """Barycentric attribute interpolation (``interpolate``,
     rasterize.py:842, corner layout): attr (3F,C) shared by the views, or
     (B,3F,C) one per view -> u*a0 + v*a1 + (1-u-v)*a2 (B,H,W,C), zero on
-    background."""
-    ids = rast[..., 3].detach().to(torch.int32)
-    B = ids.shape[0]
+    background. K7 on the card, its plain version on the CPU."""
     F, C = attr.shape[-2] // 3, attr.shape[-1]
-    tbl = attr.reshape(-1, F, 3 * C).expand(B, F, 3 * C)
-    a = _row_gather(tbl, ids).view(*ids.shape, 3, C)
-    u = rast[..., 0:1]
-    v = rast[..., 1:2]
-    out = a[..., 0, :] * u + a[..., 1, :] * v + a[..., 2, :] * (1.0 - u - v)
-    return out * (ids > 0)[..., None].to(out.dtype)
+    tbl = attr.reshape(-1, F, 3 * C)
+    if rast.is_cuda:
+        return _Interp.apply(tbl.contiguous(), rast.contiguous())
+    return rk.interp_plain(rast, tbl)
 
 
 class _AntialiasSilhouette(torch.autograd.Function):
@@ -362,21 +354,13 @@ def antialias_silhouette(ids: torch.Tensor, z: torch.Tensor,
 def antialias_rows(rast: torch.Tensor, tbl6: torch.Tensor,
                    edge_nbrs: torch.Tensor):
     """K4/K5's inputs on the ``rasterize`` path, without gradient: (ids
-    (B,H,W) int32, z (B,H,W), g6 (B,6,H,W), gaux (B,4,H,W)). The rows are a
-    plain gather of the face table ``tbl6`` (B,F,6) = (ax,bx,cx,ay,by,cy)
-    with the edge neighbours and the sign of the screen area; z is the
-    shaded z of ``rast``, which the owner test uses, as JAX's does."""
-    ids = rast[..., 3].detach().to(torch.int32).contiguous()
-    z = rast[..., 2].detach().contiguous()
-    B, F = tbl6.shape[0], edge_nbrs.shape[0]
-    with torch.no_grad():
-        t = tbl6.detach()
-        area = edge(t[..., 0], t[..., 3], t[..., 1], t[..., 4], t[..., 2],
-                    t[..., 5])
-        nb = edge_nbrs.to(t.dtype).unsqueeze(0).expand(B, F, 3)
-        rows = _row_gather(torch.cat([t, nb, torch.sign(area)[..., None]],
-                                     dim=-1), ids).permute(0, 3, 1, 2)
-    return ids, z, rows[:, :6].contiguous(), rows[:, 6:].contiguous()
+    (B,H,W) int32, z (B,H,W), g6 (B,6,H,W), gaux (B,4,H,W)). The rows are
+    the winners' rows of the face table ``tbl6`` (B,F,6) = (ax,bx,cx,ay,by,
+    cy) with the edge neighbours and the sign of the screen area; z is the
+    shaded z of ``rast``, which the owner test uses, as JAX's does. K8 on
+    the card, its plain version (a row gather) on the CPU."""
+    return rk.winner_rows(rast.detach().contiguous(), tbl6.detach(),
+                          edge_nbrs.long())
 
 
 def antialias(rast: torch.Tensor, pos_clip: torch.Tensor,
