@@ -97,7 +97,12 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                recomputation, visibility never); (b) gso.yaml as shipped
                (view_chunk auto: one batch on the card) for 8 iterations: no
                chunks, its iteration-0 img_loss that of (a) (rtol 1e-5 of
-               the logged value), each kernel once an iteration; (c) the
+               the logged value), each kernel once an iteration, iterations
+               4 and 5 under the driver's profiler (profile_iters [4, 6]):
+               its trace <out>/trace/trace_<pid>.json holds one tssplat.step
+               span per profiled iteration, and ``python -m
+               tssplat_torch.tools.trace top`` on it exits 0 with its JSON
+               line last, a device time above 0 (``trace_top_check``); (c) the
                normal loss (K2a) and the depth loss from iteration 4 with
                Adam lr 2e-3 for 12 iterations in chunks of 8 (view_chunk=8:
                K2a, K3, K5 15 and K4 30 times an iteration; K6, K8 30, K7
@@ -249,36 +254,20 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                the card) of the final geometry
                (``_check_chunk``): each kernel the run launched against its
                plain version
- 16. bench (``bench_phase``, after 12): ``python -m tssplat_torch.bench``
-               as subprocesses of the checkout, in each mode of BENCH_RUNS:
-               (a) BENCH_SMOKE=1 (every kernel against its plain version
-               on 2 views of 128²), (b) the bench scene (8 views
-               of 512²), (c) BENCH_SPHERES=18, (d) BENCH_VIEWS=120
-               BENCH_SPHERES=18 (gso.yaml's width; one batch), (e)
-               BENCH_STAGE=texture, the exact path and BENCH_TEX_SAMPLE=4096,
-               (f) BENCH_SCALING=1; then (g) ``python -m
-               tssplat_torch.tools.trace capture`` and ``top`` on the bench
-               scene. Each exits 0 and prints its one line under its name
-               with a finite value > 0; each timed step launches its path's
-               kernels (the bench's ``launches_per_step``, counted over its
-               timed window); the lines, the bench's stderr and (b)'s rate
-               against phase 4's are printed
 The launch counts are zeroed just before each main-path phase (4, 7, 8,
-10a-c2, 11a-b, 12c, 13b-e, each run of 14, 15b, and in each bench process of
-16 before its timed window) and read just after it. Then
-one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
+10a-c2, 11a-b, 12c, 13b-e, each run of 14, 15b) and read just after it.
+Then one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
 4, of K2b from 7, of K2a, K6, K7 and K8 from 8; K6-K8's times and bounds
 at 120 views from 6d, and at the Wonder3D cell's shape as ``w3d_6v``;
 ``launches_texture`` from phase 11 (a);
 ``launches_remesh``, an iteration of 12 (c) before and after the remesh;
 ``launches_image_to_3d``, each run of 14; ``launches_tetwild``, 15 (b);
-``launches_bench``, a step of each timed bench run of 16;
 ``viewport_max_err``, ``viewport_ms`` and ``viewport_bound_ms`` of 13 (a)
 for K1, K2a, K2b, K4 and K5; ``gso_120v`` of 6c for K2b, K2a, K3, K4 and
 K5), the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Phases 14, 15 and 16 alone, from Python on
-the card: ``chip_smoke.image_to_3d_alone(smi)``,
-``chip_smoke.tetwild_alone(smi)``, ``chip_smoke.bench_phase(smi)``.
+{"ok": true, "device": {...}}. Phases 14 and 15 alone, from Python on the
+card: ``chip_smoke.image_to_3d_alone(smi)``,
+``chip_smoke.tetwild_alone(smi)``.
 """
 
 import contextlib
@@ -884,10 +873,6 @@ def main():
     for r in results:
         r["launches_remesh"] = {"before": before[r["name"]],
                                 "after": after[r["name"]]}
-    bench_counts = bench_phase(smi, train_ips)
-    for r in results:
-        r["launches_bench"] = {label: c[r["name"]]
-                               for label, c in bench_counts.items()}
 
     require(len(results) == len(rk.KERNELS), "a kernel is missing a report")
     print(f"[done] every phase passed in "
@@ -1583,17 +1568,20 @@ def driver_phase(smi, views=120, res=512, device=None):
             require(os.path.exists(f"{out_a}/{path}"), f"(a): no {path}")
 
         # (b) gso.yaml as shipped (view_chunk auto), 8 iterations, on (a)'s
-        # sphere meshes: the card's free memory holds the 120 views at once
-        log_b, _, text = run(
+        # sphere meshes: the card's free memory holds the 120 views at once;
+        # iterations 4 and 5 under the driver's profiler
+        log_b, out_b, text = run(
             "b_unchunked", 8, dict(visibility_capped=8, wsr_table_grad=8,
                                    aa_forward=8, aa_backward=8),
             "log_every=4", "export_every=12",
-            "geometry.load_precomputed_tetwild_mesh=true")
+            "geometry.load_precomputed_tetwild_mesh=true",
+            "profile_iters=[4,6]")
         require("view microbatching" not in text,
                 "(b): view_chunk auto chunked 120 views of 512² on the card")
         require(math.isclose(log_b[0][1], log_a[0][1], rel_tol=1e-5),
                 f"(b): iteration-0 img_loss {log_b[0][1]} != (a)'s "
                 f"{log_a[0][1]}")
+        trace_top_check(smi, f"{out_b}/trace", 2)
 
         # (c) the normal loss throughout (K2a: the shaded path), the depth
         # loss from iteration 4 (the step rebuilt then), Adam lr 2e-3, 12
@@ -1652,6 +1640,45 @@ def driver_phase(smi, views=120, res=512, device=None):
         return counts, i3d, tetwild
 
 
+def trace_top_check(smi, trace_dir, n_steps):
+    """Phase 10 (b)'s trace: the driver's profile_iters wrote
+    ``trace_dir/trace_<pid>.json`` with one ``tssplat.step`` span (a host
+    ``user_annotation``) per profiled iteration, and ``python -m
+    tssplat_torch.tools.trace top`` on it, a subprocess of the checkout,
+    exits 0 with its JSON line last and a device time above 0."""
+    t0 = time.perf_counter()
+    name = f"trace_{os.getpid()}.json"
+    require(os.listdir(trace_dir) == [name],
+            f"(b): {trace_dir} holds {os.listdir(trace_dir)}, not {name}")
+    with open(os.path.join(trace_dir, name)) as fh:
+        events = json.load(fh)["traceEvents"]
+    steps = sum(1 for e in events if e.get("name") == "tssplat.step"
+                and e.get("cat") == "user_annotation")
+    require(steps == n_steps, f"(b): {steps} tssplat.step spans in the "
+            f"trace, {n_steps} profiled iterations")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, "-m", "tssplat_torch.tools.trace",
+                           "top", trace_dir, str(n_steps), "15"], env=env,
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    require(proc.returncode == 0, f"(b): trace top exited "
+            f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+            f"{proc.stderr[-4000:]}")
+    for line in proc.stdout.strip().splitlines():
+        print(f"[driver] (b) trace top: {line}", flush=True)
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    require(rec.get("metric") == "trace_device_ms_per_step"
+            and math.isfinite(rec["value"]) and rec["value"] > 0,
+            f"(b): trace top's last line {rec}")
+    print(f"[driver] (b) {steps} tssplat.step spans, "
+          f"{rec['value']} device ms a profiled step, "
+          f"{rec['ops_per_step']} device operations a step; "
+          f"{time.perf_counter() - t0:.1f} s on {smi}", flush=True)
+
+
 def rule_memory_phase(smi, views=120, res=512):
     """Phase 10 (d): tools/view_memory.py's readings of the unchunked
     silhouette, depth + normal and dense colour texture steps on the
@@ -1680,109 +1707,6 @@ def rule_memory_phase(smi, views=120, res=512):
     torch.cuda.empty_cache()
     print(f"[rule] phase 10 (d) {time.perf_counter() - t0:.1f} s",
           flush=True)
-
-
-# phase 16: each mode of the port's bench, its expected metric and the
-# kernels its step launches (each at least once a step)
-BENCH_RUNS = (
-    ("a", {"BENCH_SMOKE": "1"}, "cuda_kernel_smoke", ()),
-    ("b", {}, "geometry_train_iters_per_sec_b8_r512",
-     ("visibility", "wsr_table_grad", "aa_forward", "aa_backward")),
-    ("c", {"BENCH_SPHERES": "18"}, "geometry_train_iters_per_sec_b8_r512_s18",
-     ("visibility_capped", "wsr_table_grad", "aa_forward", "aa_backward")),
-    ("d", {"BENCH_VIEWS": "120", "BENCH_SPHERES": "18"},
-     "geometry_train_iters_per_sec_b120_r512_s18",
-     ("visibility_capped", "wsr_table_grad", "aa_forward", "aa_backward")),
-    ("e_exact", {"BENCH_STAGE": "texture"},
-     "texture_train_iters_per_sec_b8_r512", ()),
-    ("e_sampled", {"BENCH_STAGE": "texture", "BENCH_TEX_SAMPLE": "4096"},
-     "texture_train_iters_per_sec_b8_r512", ()),
-    ("f", {"BENCH_SCALING": "1"}, "weak_scaling_efficiency_d{cards}_r256",
-     ()),
-)
-
-
-def _metric_line(label, stdout, name, one_line=True):
-    """The JSON line of ``stdout`` parsed (with ``one_line``, the only
-    line and bench.py's four keys; else the last line): under ``name``,
-    its value finite and > 0."""
-    lines = stdout.strip().splitlines()
-    require(lines and (len(lines) == 1 or not one_line),
-            f"({label}): {len(lines)} stdout lines, not one: {lines}")
-    rec = json.loads(lines[-1])
-    require(rec.get("metric") == name and (not one_line or list(rec) == [
-        "metric", "value", "unit", "vs_baseline"]),
-        f"({label}): {lines[-1]} is not a {name} line")
-    require(math.isfinite(rec["value"]) and rec["value"] > 0,
-            f"({label}): value {rec['value']}")
-    return rec
-
-
-def bench_phase(smi, train_ips=None, timeout=600):
-    """Phase 16: ``python -m tssplat_torch.bench`` in each mode of
-    BENCH_RUNS, then ``python -m tssplat_torch.tools.trace capture`` and
-    ``top`` on the bench scene, each a subprocess of the checkout with no
-    other BENCH_* or TRACE_* setting: each exits 0 and prints its line
-    under its name with a finite value > 0; each bench run launches the
-    kernels of its path in the timed window (its stderr's
-    ``launches_per_step``). Prints each line, the bench's diagnostics and
-    (b)'s rate against phase 4's ``train_ips``. Returns {label: launches
-    a step} of the bench runs that time a step."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env0 = {k: v for k, v in os.environ.items()
-            if not k.startswith(("BENCH_", "TRACE_"))}
-    env0["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in env0.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
-    t_phase = time.perf_counter()
-    launches, rates = {}, {}
-
-    def sub(label, argv, env):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, *argv], env=dict(env0, **env),
-                              cwd=root, capture_output=True, text=True,
-                              timeout=timeout)
-        require(proc.returncode == 0, f"({label}) {argv} exited "
-                f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
-                f"{proc.stderr[-4000:]}")
-        return proc, time.perf_counter() - t0
-
-    for label, env, name, path in BENCH_RUNS:
-        name = name.format(cards=torch.cuda.device_count())
-        proc, secs = sub(label, ["-m", "tssplat_torch.bench"], env)
-        rec = _metric_line(label, proc.stdout, name)
-        rates[label] = rec["value"]
-        for line in proc.stderr.strip().splitlines():
-            print(f"[bench] ({label}) {line}", flush=True)
-        print(f"[bench] ({label}) {proc.stdout.strip()} in {secs:.1f} s on "
-              f"{smi}", flush=True)
-        found = re.findall(r"^launches_per_step=(.*)$", proc.stderr, re.M)
-        if label not in ("a", "f"):
-            require(found, f"({label}): no launches_per_step on stderr")
-            launches[label] = json.loads(found[-1])
-            require(all(launches[label][n] >= 1 for n in path),
-                    f"({label}): launches a step {launches[label]}, each of "
-                    f"{path} expected")
-    if train_ips is not None:
-        print(f"[bench] (b) {rates['b']} it/s against phase 4's "
-              f"{train_ips:.4f} it/s on the same scene and step (ratio "
-              f"{rates['b'] / train_ips:.3f})", flush=True)
-
-    # (g) the trace tool on the bench scene
-    with tempfile.TemporaryDirectory(prefix="tss_trace_") as tmp:
-        proc, secs = sub("g capture", ["-m", "tssplat_torch.tools.trace",
-                                       "capture", tmp], {})
-        require(os.path.exists(os.path.join(tmp, "trace.json")),
-                "(g): capture wrote no trace.json")
-        proc, secs2 = sub("g top", ["-m", "tssplat_torch.tools.trace", "top",
-                                    tmp, "10", "15"], {})
-        _metric_line("g", proc.stdout, "trace_device_ms_per_step",
-                     one_line=False)
-    for line in proc.stdout.strip().splitlines():
-        print(f"[bench] (g) {line}", flush=True)
-    print(f"[bench] (g) capture {secs:.1f} s, top {secs2:.1f} s; phase 16 "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
 
 
 # the six named views of the Wonder3D layout and the azimuths of

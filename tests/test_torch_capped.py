@@ -94,6 +94,20 @@ def test_layout_rule_matches_jax(F, B, rows):
         assert want
 
 
+@pytest.mark.parametrize("F, R, B", [
+    (14796, 14, 120), (14796, 11, 120), (14796, 11, 6), (2012, 14, 8),
+], ids=["sil_120v", "dn_120v", "w3d_6v", "bench_scene"])
+def test_layout_rule_at_the_cells_shapes(F, R, B):
+    """The port's layout rule against JAX's choice at the benchmark's
+    shapes at 512² (PERF.md §4): the 18 spheres' 14,796 faces at 120 views
+    with winner rows (silhouette) and without (depth + normal), at the
+    Wonder3D cell's 6 views without, all capped; and the bench scene's
+    single sphere (2,012 faces) at 8 views, left to the flat layout."""
+    want = _jax_choice_is_capped(F, B, R == 14)
+    assert uses_capped_layout(F, R, B, 512, 512) == want
+    assert want == (F == 14796)
+
+
 def test_layout_rule_budget_patch_matches_jax(monkeypatch):
     """A patched budget moves the port's rule as JAX's, and unaligned
     resolutions never cap."""

@@ -32,8 +32,7 @@ def test_import_pulls_in_no_jax():
     """Every module of the port, imported in a fresh interpreter, loads no
     jax and no tssplat_tpu module; the driver's, the texture stage's, the
     multi-rank modules, the topology library's binding, the sanitizers,
-    the SDS guidance and its driver, the bench and the trace tool among
-    them."""
+    the SDS guidance and its driver and the trace tool among them."""
     code = (
         "import sys, pkgutil, importlib, tssplat_torch\n"
         "for m in pkgutil.walk_packages(tssplat_torch.__path__, "
@@ -52,7 +51,7 @@ def test_import_pulls_in_no_jax():
         "'tssplat_torch.tools.run_ranks', 'tssplat_torch.native', "
         "'tssplat_torch.utils.debug', 'tssplat_torch.guidance', "
         "'tssplat_torch.guidance.sds', 'tssplat_torch.train_sds', "
-        "'tssplat_torch.bench', 'tssplat_torch.tools.trace']\n"
+        "'tssplat_torch.tools.trace']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'tssplat_tpu')]\n"

@@ -15,10 +15,11 @@ from tssplat_torch.materials.exact_stage import (build_texture_exact_cache,
                                                  build_texture_exact_loss)
 from tssplat_torch.mesh.spheres import icosphere, tet_sphere
 from tssplat_torch.mesh.tetmesh import TetMesh
-from tssplat_torch.ops.transform import fibonacci_views
+from tssplat_torch.ops.transform import fibonacci_views, look_at
 from tssplat_torch.optim import adam_uniform, cosine_annealing_lr
 from tssplat_torch.tools.synthetic import render_views_of_mesh
-from tssplat_torch.train import init_train_state, make_train_step
+from tssplat_torch.train import (build_texture_sample_cache,
+                                 init_train_state, make_train_step)
 from tssplat_torch.utils import profiling
 
 torch.set_num_threads(1)
@@ -26,6 +27,7 @@ torch.set_num_threads(1)
 RES = 64
 VIEWS = 4
 CHUNK = 2
+SAMPLE = 64                   # the sampled texture path's pixels a view
 ENC = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
        "log2_hashmap_size": 10, "base_resolution": 4,
        "per_level_scale": 1.6}
@@ -50,30 +52,58 @@ def scene():
                     for k, a in batch.items()}
 
 
+def _ortho_mvps():
+    """Wonder3D's orthographic cameras (tests/test_wonder3d.py's
+    ``diag(1.2, -1.2, -0.3, 1) @ look_at(2.5)``) at VIEWS azimuths."""
+    mvps = []
+    for a in np.radians(np.arange(VIEWS) * 360.0 / VIEWS):
+        mv = look_at(np.asarray([np.sin(a), 0.0, np.cos(a)]) * 2.5,
+                     [0, 0, 0], [0, 1, 0])
+        mvps.append(np.diag([1.2, -1.2, -0.3, 1.0]) @ mv)
+    return torch.as_tensor(np.stack(mvps), dtype=torch.float32)
+
+
 def _step(scene, case):
-    """(step, state, batch) of one case: the chunked silhouette step, the
-    chunked depth + normal step, or the exact texture step."""
+    """(step, state, batch) of one case: the silhouette or the depth +
+    normal step in chunks of CHUNK views or in one batch; the orthographic
+    normal-only step of the Wonder3D cell (one batch; Wonder3D's cameras
+    over the perspective views' targets: the spans do not depend on the
+    pixels); the exact or the cached sampled texture step."""
     (v, t), batch = scene
     init_fn, update_fn = adam_uniform(
         cosine_annealing_lr(0.2, 100), grad_limit=True,
         grad_limit_values=(0.01, 0.01), grad_limit_iters=(50,))
-    if case == "texture":
+    if case.startswith("texture"):
         geo = TetMeshGeometry(dict(use_smooth_barrier=False),
                               tetmesh=TetMesh(v, t), device="cpu")
         mat = ExplicitMaterial({"pos_encoding_config": dict(ENC)},
                                device="cpu")
-        cache = build_texture_exact_cache(geo, mat, batch, RES)
-        step = make_train_step(
-            geo.statics, update_fn, resolution=RES,
-            material_fn=mat.apply_fn, tet_v_frozen=geo.tet_v,
-            texture_exact_loss=build_texture_exact_loss(mat, geo.statics,
-                                                        cache))
-        return step, init_train_state(mat.params, init_fn), {}
+        if case == "texture":
+            cache = build_texture_exact_cache(geo, mat, batch, RES)
+            kw = dict(texture_exact_loss=build_texture_exact_loss(
+                mat, geo.statics, cache))
+            batch = {}
+        else:
+            kw = dict(texture_sample_px=SAMPLE,
+                      texture_cache=build_texture_sample_cache(
+                          geo.statics, geo.tet_v, batch["mvp"],
+                          batch["img"], RES))
+            batch = dict(batch, view_idx=torch.arange(VIEWS,
+                                                      dtype=torch.int32))
+        step = make_train_step(geo.statics, update_fn, resolution=RES,
+                               material_fn=mat.apply_fn,
+                               tet_v_frozen=geo.tet_v, **kw)
+        return step, init_train_state(mat.params, init_fn), batch
     geo = TetMeshGeometry(dict(use_smooth_barrier=True),
                           tetmesh=TetMesh(v, t), device="cpu")
-    dn = case == "depth_normal"
-    step = make_train_step(geo.statics, update_fn, resolution=RES,
-                           fit_depth=dn, fit_normal=dn, view_chunk=CHUNK)
+    ortho = case == "ortho_normal_one_batch"
+    if ortho:
+        batch = dict(batch, mvp=_ortho_mvps())
+    step = make_train_step(
+        geo.statics, update_fn, resolution=RES, is_ortho=ortho,
+        fit_depth=case.startswith("depth_normal"),
+        fit_normal=not case.startswith("silhouette"),
+        view_chunk=0 if case.endswith("one_batch") else CHUNK)
     return step, init_train_state(geo.tet_v, init_fn), batch
 
 
@@ -102,6 +132,10 @@ GEOMETRY = {"tssplat.step": 1, "tssplat.visibility": CHUNKS,
             "tssplat.backward": 1, "tssplat.optim": 1,
             # AdamUniform's constants (3 sites) and the best iteration
             "tssplat.sync.optim": 4}
+# one batch: one binning and one render, no recompute
+ONE_BATCH = {**GEOMETRY, "tssplat.visibility": 1, "tssplat.binning": 1,
+             "tssplat.sync.binning": 1, "tssplat.sync.bincount": 1,
+             "tssplat.render": 1}
 NESTED = [("tssplat.visibility", "tssplat.step"),
           ("tssplat.binning", "tssplat.visibility"),
           ("tssplat.sync.binning", "tssplat.binning"),
@@ -111,14 +145,22 @@ NESTED = [("tssplat.visibility", "tssplat.step"),
           ("tssplat.backward", "tssplat.step"),
           ("tssplat.optim", "tssplat.step"),
           ("tssplat.sync.optim", "tssplat.optim")]
+# the normal shading in each render
+SHADED = NESTED + [("tssplat.sync.row_gather", "tssplat.step"),
+                   ("tssplat.sync.normals", "tssplat.render"),
+                   ("tssplat.normals", "tssplat.render"),
+                   ("tssplat.sync.normals", "tssplat.normals")]
+# one batch: the vertex normals' +z and the z flip wait once each; the
+# CPU's row gathers wait 11 times with the depth term, 8 without it
+NORMALS = {"tssplat.normals": 1, "tssplat.sync.normals": 2}
 CASES = {
     "silhouette": ({**GEOMETRY, "tssplat.normals": 0}, NESTED),
-    # the normal shading in each render
-    "depth_normal": ({**GEOMETRY, "tssplat.normals": 2 * CHUNKS}, NESTED + [
-        ("tssplat.sync.row_gather", "tssplat.step"),
-        ("tssplat.sync.normals", "tssplat.render"),
-        ("tssplat.normals", "tssplat.render"),
-        ("tssplat.sync.normals", "tssplat.normals")]),
+    "silhouette_one_batch": ({**ONE_BATCH, "tssplat.normals": 0}, NESTED),
+    "depth_normal": ({**GEOMETRY, "tssplat.normals": 2 * CHUNKS}, SHADED),
+    "depth_normal_one_batch": ({**ONE_BATCH, **NORMALS,
+                                "tssplat.sync.row_gather": 11}, SHADED),
+    "ortho_normal_one_batch": ({**ONE_BATCH, **NORMALS,
+                                "tssplat.sync.row_gather": 8}, SHADED),
     "texture": ({"tssplat.step": 1, "tssplat.encoding": 1,
                  "tssplat.mlp": 1, "tssplat.antialias_color": 1,
                  "tssplat.backward": 1, "tssplat.optim": 1,
@@ -128,6 +170,18 @@ CASES = {
                  ("tssplat.antialias_color", "tssplat.step"),
                  ("tssplat.sync.row_gather", "tssplat.antialias_color"),
                  ("tssplat.sync.encoding", "tssplat.encoding")]),
+    # the cached sampled path: no visibility and no colour antialias
+    "texture_sampled": ({"tssplat.step": 1, "tssplat.encoding": 1,
+                         "tssplat.mlp": 1, "tssplat.antialias_color": 0,
+                         "tssplat.backward": 1, "tssplat.optim": 1,
+                         "tssplat.sync.optim": 4, "tssplat.render": 0,
+                         "tssplat.visibility": 0,
+                         "tssplat.sync.row_gather": 0},
+                        [("tssplat.encoding", "tssplat.step"),
+                         ("tssplat.mlp", "tssplat.step"),
+                         ("tssplat.sync.encoding", "tssplat.encoding"),
+                         ("tssplat.backward", "tssplat.step"),
+                         ("tssplat.sync.optim", "tssplat.optim")]),
 }
 
 
@@ -144,15 +198,20 @@ def test_step_opens_its_spans_nested(scene, case):
     # every recompute runs inside the backward
     assert _inside(spans, "tssplat.render", "tssplat.backward") == \
         counts["tssplat.render"] // 2
-    if case == "depth_normal":
-        # the row gathers wait in the forward and its recompute (inside
-        # the render) and in their backward (outside it)
+    if counts.get("tssplat.normals"):
+        # the row gathers wait in the forward and any recompute (inside
+        # the render) and in their backward (outside it); without a
+        # recompute each wait is in the forward's render or the backward
         n = names.count("tssplat.sync.row_gather")
         in_render = _inside(spans, "tssplat.sync.row_gather",
                             "tssplat.render")
         in_backward = _inside(spans, "tssplat.sync.row_gather",
                               "tssplat.backward")
-        assert 0 < in_render < n and n - in_render < in_backward
+        assert 0 < in_render < n
+        if counts["tssplat.render"] > 1:
+            assert n - in_render < in_backward
+        else:
+            assert n - in_render == in_backward
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -1,12 +1,14 @@
 """The slice as a whole: the port's geometry-stage train step against one
 jitted step of the JAX package's make_train_step on the CPU, from the same
 geometry, targets and optimizer state (carried across by
-tssplat_torch.convert); then a 10-step trajectory."""
+tssplat_torch.convert); then a 10-step trajectory. Last, run_steps over
+each kind of step against the same steps taken one at a time."""
 
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from torch.utils._pytree import tree_leaves, tree_map
 
 from tssplat_tpu.mesh.spheres import tet_sphere
 from tssplat_tpu.mesh.tetmesh import TetMesh
@@ -18,8 +20,13 @@ from tssplat_tpu.train import make_train_step as jax_make_train_step
 from tssplat_tpu.train import TrainState as JaxTrainState
 
 from tssplat_torch import convert
+from tssplat_torch.materials import ExplicitMaterial
+from tssplat_torch.materials.exact_stage import (build_texture_exact_cache,
+                                                 build_texture_exact_loss)
 from tssplat_torch.optim import adam_uniform, cosine_annealing_lr
-from tssplat_torch.train import (init_train_state, make_train_step,
+from tssplat_torch.tools.synthetic import bench_scene
+from tssplat_torch.train import (build_texture_sample_cache,
+                                 init_train_state, make_train_step,
                                  run_steps)
 
 torch.set_num_threads(1)
@@ -123,3 +130,66 @@ def test_trajectory_matches_jax(setup):
     # trajectories stay within a quarter of one step of each other
     np.testing.assert_allclose(st_t.params.numpy(), np.asarray(st_j.params),
                                atol=5e-4)
+
+
+KINDS = ["silhouette", "silhouette_3_spheres", "silhouette_chunked",
+         "depth_normal", "texture_exact", "texture_sampled"]
+ENC = {"otype": "HashGrid", "n_levels": 4, "n_features_per_level": 2,
+       "log2_hashmap_size": 10, "base_resolution": 4,
+       "per_level_scale": 1.6}
+
+
+def _kind(kind):
+    """(step, state, batch) of one kind of step on the bench scene at 2
+    views of 64²: the silhouette step on one sphere, on 3 spheres and in
+    chunks of one view, the depth + normal step, and the texture step on
+    the exact and on the cached sampled path (64 pixels a view) with a
+    small hash grid (ENC)."""
+    views, res = 2, 64
+    geo, batch = bench_scene("cpu", views, res,
+                             n_spheres=3 if kind.endswith("3_spheres") else 1)
+    if kind.startswith("texture"):
+        mat = ExplicitMaterial({"pos_encoding_config": dict(ENC)}, "cpu")
+        init_fn, update_fn = adam_uniform(cosine_annealing_lr(0.01, 1500))
+        if kind == "texture_exact":
+            cache = build_texture_exact_cache(geo, mat, batch, res)
+            assert cache is not None
+            kw = dict(texture_exact_loss=build_texture_exact_loss(
+                mat, geo.statics, cache))
+        else:
+            kw = dict(texture_sample_px=64,
+                      texture_cache=build_texture_sample_cache(
+                          geo.statics, geo.tet_v, batch["mvp"],
+                          batch["img"], res))
+            batch["view_idx"] = torch.arange(views, dtype=torch.int32)
+        step = make_train_step(geo.statics, update_fn, resolution=res,
+                               material_fn=mat.apply_fn,
+                               tet_v_frozen=geo.tet_v, **kw)
+        return step, init_train_state(mat.params, init_fn), batch
+    init_fn, update_fn = adam_uniform(cosine_annealing_lr(0.2, 1500), **OPT)
+    dn = kind == "depth_normal"
+    step = make_train_step(geo.statics, update_fn, resolution=res,
+                           fit_depth=dn, fit_normal=dn,
+                           view_chunk=1 if kind.endswith("chunked") else 0)
+    return step, init_train_state(geo.tet_v, init_fn), batch
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_run_steps_equals_single_steps(kind):
+    """run_steps over 3 steps from iteration 1, with a host read every 2,
+    returns the outputs of each step and the final state, bit-equal to the
+    same steps taken one at a time from the same state."""
+    step, state, batch = _kind(kind)
+    start = tree_map(torch.clone, state)
+    got_state, got = run_steps(step, state, batch, 1, 3, sync_every=2)
+    want = []
+    for it in range(1, 4):
+        start, out = step(start, batch, it)
+        want.append(out)
+    assert len(got) == 3
+    got_leaves = tree_leaves((got_state, got))
+    want_leaves = tree_leaves((start, want))
+    assert len(got_leaves) == len(want_leaves) > 8
+    for a, b in zip(got_leaves, want_leaves):
+        assert torch.equal(a, b)
+    assert all(torch.isfinite(o[0]) for o in got)

@@ -1,23 +1,17 @@
-"""A profiler trace of the bench's train step, and its top device
-operations (the counterpart of ``examples/trace_capture.py`` and
-``examples/trace_top.py``).
+"""The top device operations of a profiler trace of the port (the
+counterpart of ``examples/trace_top.py``).
 
-    python -m tssplat_torch.tools.trace capture DIR
     python -m tssplat_torch.tools.trace top DIR [n_steps] [top_k]
 
-``capture`` builds the bench's scene and step (``tssplat_torch/bench.py
-build``, the same BENCH_* knobs), takes its 3 warm-up steps, then records
-TRACE_STEPS (10) steps under ``torch.profiler`` (the host read of the last
-loss inside the window) and writes the chrome trace to DIR/trace.json.
 ``top`` reads the newest ``*.json`` under DIR as ``export_chrome_trace``
-wrote it (no tensorboard) and prints the device operations (kernel,
-memset and memcpy events) by time: ms and count a step (the totals over
-``n_steps``, default 1), the top ``top_k`` (default 30) and their sum;
-then one JSON line, {"metric": "trace_device_ms_per_step", "value": the
-device time of every operation a step, ...}.
-
-``capture`` runs on the card (CPU and CUDA activities) unless the caller
-passes ``device="cpu"``, which records CPU operations only.
+wrote it (no tensorboard): the driver's ``profile_iters: [start, stop]``
+writes ``<output_path>/trace/trace_<pid>.json`` (``utils/profiling.py
+trace_profile``, CUDA activity included on the card), and any other
+``export_chrome_trace`` file is read the same way. It prints the device
+operations (kernel, memset and memcpy events) by time: ms and count a step
+(the totals over ``n_steps``, default 1), the top ``top_k`` (default 30)
+and their sum; then one JSON line, {"metric": "trace_device_ms_per_step",
+"value": the device time of every operation a step, ...}.
 """
 
 from __future__ import annotations
@@ -28,40 +22,8 @@ import json
 import os
 import sys
 
-from ..device import DeviceLike
-
 # chrome-trace categories of the operations that run on the device
 DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
-
-
-def capture(out_dir: str, device: DeviceLike = None,
-            n_steps: int = None) -> str:
-    """Record ``n_steps`` (TRACE_STEPS, 10) steps of the bench's step after
-    its warm-up; returns the trace's path (``out_dir/trace.json``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..bench import WARM, Knobs, build
-
-    n_steps = int(os.environ.get("TRACE_STEPS", 10)) if n_steps is None \
-        else int(n_steps)
-    run = build(Knobs.from_env(), device)
-    step, state, batch = run.step, run.state, run.batch
-    for it in range(WARM):
-        state, out = step(state, batch, it)
-    print(f"warm loss: {float(out[0])}", file=sys.stderr, flush=True)
-    acts = [ProfilerActivity.CPU]
-    if state.best_loss.device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        for it in range(WARM, WARM + n_steps):
-            state, out = step(state, batch, it)
-        float(out[0])                  # the host read inside the window
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    print(f"trace of {n_steps} steps written to {path}", file=sys.stderr,
-          flush=True)
-    return path
 
 
 def device_ops(trace_path: str):
@@ -108,14 +70,11 @@ def top(trace_dir: str, n_steps: int = 1, top_k: int = 30) -> float:
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) < 2 or argv[0] not in ("capture", "top"):
+    if len(argv) < 2 or argv[0] != "top":
         raise SystemExit("usage: python -m tssplat_torch.tools.trace "
-                         "capture DIR | top DIR [n_steps] [top_k]")
-    if argv[0] == "capture":
-        capture(argv[1])
-    else:
-        top(argv[1], int(argv[2]) if len(argv) > 2 else 1,
-            int(argv[3]) if len(argv) > 3 else 30)
+                         "top DIR [n_steps] [top_k]")
+    top(argv[1], int(argv[2]) if len(argv) > 2 else 1,
+        int(argv[3]) if len(argv) > 3 else 30)
 
 
 if __name__ == "__main__":
