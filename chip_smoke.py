@@ -73,6 +73,14 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                step of the 120 views (Adam, one batch): its launches (K2a,
                K3, K4, K5, K6, K6's backward and K8 once, K7 and its
                backward twice), time and peak memory
+  6e. the hash-grid encoding's kernels (``hash_grid_phase``): K9 and its
+               backward at the exact texture cell's shape, the exact cache
+               of 6c's scene at its 120 views (~1.28 M points) and the
+               default 16 x 2^19 x 2 table: the features and d x equal
+               their plain versions to the bit, each row of the table
+               gradient within 1e-5 of its sum of |terms|; each timed as
+               in phase 3 with its plain version and its bound (bytes over
+               3.35 TB/s). Alone: ``chip_smoke.hash_grid_alone(smi)``
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
@@ -125,14 +133,16 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                antialiased Lambertian colour as the target. (a) the exact
                path, 24 iterations: its line printed and no warning, the
                visibility kernel (K1 or K2a), K6 and K7 launched once per
-               view in the cache build and once in the UV bake, K8 once
-               inside each step and nothing else,
+               view in the cache build and once in the UV bake, K8, K9
+               and K9's backward once inside each step and nothing else,
+               K9 again in each of the bake's 8 chunks,
                img_loss falling (the mean of the last four logged against
                the first four), final/material/{material.npz,
                texture_kd.png, mesh.obj, material.mtl} written and the
                texture not flat grey; (b) the sampled path
                (texture_sample_px=4096, cached), 24 iterations, its cache
-               line, no launch inside a step, img_loss falling; (c) the card
+               line, K9 and its backward once inside a step and nothing
+               else, img_loss falling; (c) the card
                against the CPU on 2 views of 128² (the port's writer, the
                same final/ geometry, the same seeded material): one exact
                step and one dense step, loss within rtol 1e-5, the network's
@@ -259,7 +269,7 @@ The launch counts are zeroed just before each main-path phase (4, 7, 8,
 Then one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
 4, of K2b from 7, of K2a, K6, K7 and K8 from 8; K6-K8's times and bounds
 at 120 views from 6d, and at the Wonder3D cell's shape as ``w3d_6v``;
-``launches_texture`` from phase 11 (a);
+K9's from 6e; ``launches_texture`` from phase 11 (a);
 ``launches_remesh``, an iteration of 12 (c) before and after the remesh;
 ``launches_image_to_3d``, each run of 14; ``launches_tetwild``, 15 (b);
 ``viewport_max_err``, ``viewport_ms`` and ``viewport_bound_ms`` of 13 (a)
@@ -783,6 +793,14 @@ def main():
                   f"bound_ms={bnd[0]:.4f} ({bnd[1]}); on {smi}", flush=True)
 
     shaded_phase(smi, report_shaded, g_geo, g_batch, g_k)
+
+    # ---- 6e. K9 at the exact texture cell's shape ---------------------------
+    def report_grid(name, err, tol, ms, plain_ms, bnd):
+        report(name, "tssplat_torch/csrc/hash_grid.cu",
+               "none (XLA code in the JAX package)", err, tol, ms, plain_ms,
+               bnd)
+
+    hash_grid_phase(smi, report_grid, g_geo, g_batch)
     del g_geo, g_batch
     torch.cuda.empty_cache()
 
@@ -1002,6 +1020,93 @@ def shaded_alone(smi=""):
 
     return shaded_phase(smi, report, geo, batch,
                         validated_tile_k(geo, batch, RES))
+
+
+def hash_grid_phase(smi, report, geo, batch, res=RES):
+    """Phase 6e: K9 at the exact texture cell's shape: the exact cache of
+    the scene ``geo`` at the views of ``batch`` (gso.yaml's 120 of res²:
+    ~1.28 M foreground points in per-view raster order) and the default
+    material's 16 x 2^19 x 2 table, under a seeded cotangent. The features
+    and d x equal their plain versions to the bit, each row of the table
+    gradient lies within 1e-5 of the sum of |terms| it adds
+    (tools/grid_cases.py table_rows_err); each direction timed as in
+    phase 3 (the backward as the texture step runs it: the table's
+    gradient only) beside its plain version and its bound (bytes over
+    3.35 TB/s: the points, the feature or cotangent rows, and the table
+    rows the points touch, or the whole gradient written), the numbers
+    handed to ``report(name, err, tol, ms, plain_ms, bound)``."""
+    from tssplat_torch.materials import ExplicitMaterial
+    from tssplat_torch.materials.exact_stage import \
+        build_texture_exact_cache
+    from tssplat_torch.ops import hash_grid as hg
+    from tssplat_torch.tools.grid_cases import table_rows_err
+    from tssplat_torch.tools.timing import bound_ms, cuda_ms
+
+    t0 = time.perf_counter()
+    dev = batch["mvp"].device
+    mat = ExplicitMaterial(None, device=dev)
+    B = batch["mvp"].shape[0]
+    data = {"mvp": batch["mvp"], "img": batch["img"].expand(-1, -1, -1, 3),
+            "background": torch.zeros((B, res, res, 3), device=dev)}
+    cache = build_texture_exact_cache(geo, mat, data, res)
+    require(cache is not None, "6e: the exact cache was refused")
+    enc = mat.cfg.pos_encoding_config
+    grid = hg.grid_levels(enc["n_levels"], enc["base_resolution"],
+                          enc["per_level_scale"], enc["log2_hashmap_size"])
+    x, table = cache["xc"].contiguous(), mat.params["encoding"]["table"]
+    del cache
+    N, L, F, H = x.shape[0], len(grid[0]), table.shape[1], grid[2]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ct = torch.randn((N, L * F), generator=gen, device=dev)
+
+    y = hg.hash_grid(table, x, grid)
+    require(torch.equal(y, hg.hash_grid_plain(table, x, grid)),
+            "6e: K9's features differ from the plain version's")
+    d_table, d_x = hg.hash_grid_backward(table, x, ct, grid, need_x=True)
+    want_t, want_x = hg.hash_grid_backward_plain(table, x, ct, grid,
+                                                 need_x=True)
+    require(torch.equal(d_x, want_x), "6e: K9's d x differs from the plain "
+            "version's")
+    t_err = float((d_table - want_t).abs().max())
+    row_err = table_rows_err(d_table, table, x, ct, grid)
+    require(row_err <= 1e-5, f"6e: K9's table gradient {row_err:.3g} of a "
+            f"row's sum of |terms| from the plain version's")
+    idx, _ = hg.grid_corners(x, *grid)
+    touched = int(torch.unique(idx).numel())
+    del idx, y, d_table, d_x, want_t, want_x
+    torch.cuda.empty_cache()
+    stream_b = N * 12 + N * L * F * 4
+    report("hash_grid", 0.0, 0.0,
+           cuda_ms(lambda: hg.hash_grid(table, x, grid)),
+           cuda_ms(lambda: hg.hash_grid_plain(table, x, grid), reps=5,
+                   warm=1), bound_ms(stream_b + touched * F * 4, 0))
+    report("hash_grid_backward", t_err, math.inf,
+           cuda_ms(lambda: hg.hash_grid_backward(table, x, ct, grid)),
+           cuda_ms(lambda: hg.hash_grid_backward_plain(table, x, ct, grid),
+                   reps=5, warm=1), bound_ms(stream_b + L * H * F * 4, 0))
+    print(f"[grid] {B} views of {res}²: {N} cache points, {L} levels x {H} "
+          f"rows x {F} (dense {sum(grid[1])}), {touched} rows touched "
+          f"({touched / (L * H):.3f} of the table); K9 agrees with its plain "
+          f"versions (table rows within {row_err:.3g} of their sums of "
+          f"|terms|); phase 6e {time.perf_counter() - t0:.1f} s; on {smi}",
+          flush=True)
+    del x, ct
+    torch.cuda.empty_cache()
+
+
+def hash_grid_alone(smi=""):
+    """Phase 6e by itself (the 18-sphere scene at 120 views of 512², ~10 s
+    to mesh), its numbers printed."""
+    from tssplat_torch.tools.synthetic import multisphere_scene
+
+    geo, batch = multisphere_scene("cuda", 18, GSO_VIEWS, RES)
+
+    def report(name, err, tol, ms, plain_ms, bnd):
+        print(f"[grid] {name}: max_err={err:.3g} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})",
+              flush=True)
+
+    hash_grid_phase(smi, report, geo, batch)
 
 
 def slab_phase(report_slab, bench_pos, bench_nbrs, ms_pos, ms_nbrs, k, res,
@@ -2238,15 +2343,20 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
         require(_falls(logged), f"{label}: img_loss did not fall {logged}")
         return counts, out, text
 
-    # (a) the exact path: K8 (the colour antialias's rows) in each step
+    # (a) the exact path: K9 (the encoding and its gradient) and K8 (the
+    # colour antialias's rows) in each step
+    k9 = {"hash_grid": 1, "hash_grid_backward": 1}
     counts, out, text = timed("tex_a_exact", 24, "exact texture fast path",
-                              {"winner_rows": 1})
+                              {"winner_rows": 1, **k9})
     n_vis = sum(counts[k] for k in vis_kernels)
     require(n_vis == views + 1, f"(a): {n_vis} visibility launches, "
             f"expected {views} (the cache) + 1 (the UV bake)")
     # the cache and the bake shade their winners and interpolate the
-    # positions once a render
-    want = dict(shade=views + 1, interp=views + 1, winner_rows=24)
+    # positions once a render; the bake evaluates the field at its 1024²
+    # texels in 8 chunks of 2^17 (render/pipeline.py
+    # _apply_material_chunked)
+    want = dict(shade=views + 1, interp=views + 1, winner_rows=24,
+                hash_grid=24 + 8, hash_grid_backward=24)
     require(all(counts[k] == want.get(k, 0) for k in counts
                 if k not in vis_kernels), f"(a): launches {counts}, "
             f"expected {want} besides the visibility")
@@ -2263,7 +2373,7 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
           flush=True)
 
     # (b) the sampled path, cached
-    _, _, text = timed("tex_b_sampled", 24, "texture cache:", {},
+    _, _, text = timed("tex_b_sampled", 24, "texture cache:", k9,
                        "texture_sample_px=4096")
     require("exact texture" not in text, "(b): took the exact path")
 

@@ -26,8 +26,9 @@ _VIS = "precomputed visibility is the port's vis=; K1 or K2 is chosen by " \
 _DROPS = "the port returns (rast, n_drop) where JAX fills drops_out"
 _RANKS = "a JAX device mesh or sharding; the port's ranks take its place " \
     "(parallel/mesh.py, parallel/spatial.py)"
-_BUCKETS = "avoids TPU scatters; the port's hash-grid backward is " \
-    "autograd's scatter-add"
+_BUCKETS = "avoids TPU scatters; the port's hash-grid backward is K9's " \
+    "atomics on the card (ops/hash_grid.py), autograd's scatter-add on " \
+    "the CPU"
 _BINNING = "in ops/binning.py (corner-layout arguments)"
 
 NO_COUNTERPART = {

@@ -10,11 +10,14 @@ import torch
 
 from tssplat_torch.mesh.spheres import tet_sphere
 from tssplat_torch.mesh.tetmesh import TetMesh
+from tssplat_torch.ops import hash_grid as hg
 from tssplat_torch.ops import raster_kernels as rk
 from tssplat_torch.ops.binning import bin_faces, bin_faces_capped, capacity
 from tssplat_torch.ops.transform import fibonacci_views, transform_pos
 from tssplat_torch.tools.synthetic import bench_scene, multisphere_scene
 from tssplat_torch.tools.aa_cases import CASE_NAMES as AA_CASE_NAMES, aa_cases
+from tssplat_torch.tools.grid_cases import (CASE_NAMES as GRID_CASE_NAMES,
+                                            grid_cases, table_rows_err)
 from tssplat_torch.tools.shade_cases import (CASE_NAMES as SHADE_CASE_NAMES,
                                              check_shaded, shade_cases)
 from tssplat_torch.tools.vis_cases import CASE_NAMES, capped_cases
@@ -344,8 +347,8 @@ def test_hash_grid_on_the_card_matches_cpu():
     """ExplicitMaterial's default encoding (16 levels x 2^19, dense and
     hashed levels) and MLP at 200k seeded points, with a seeded cotangent:
     the colours within 1e-6, the position gradient within 1e-4 of its max
-    and the table's within 1e-3 (autograd's scatter-add runs on atomics on
-    the card), the MLP's within 1e-4."""
+    and the table's within 1e-3 (K9's backward adds it with atomics on the
+    card), the MLP's within 1e-4."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from tssplat_torch.materials import ExplicitMaterial
@@ -369,6 +372,41 @@ def test_hash_grid_on_the_card_matches_cpu():
         scale = float(b.abs().max())
         tol = 1e-6 if i == 0 else (1e-3 if i == 2 else 1e-4) * scale
         assert float((a - b).abs().max()) <= tol, (i, scale)
+
+
+@pytest.fixture(scope="module")
+def grid_corner_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return grid_cases(torch.device("cuda"), n=200_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRID_CASE_NAMES)
+def test_hash_grid_kernels_match_plain(grid_corner_cases, name):
+    """K9 against its plain versions on tools/grid_cases.py's inputs (gso's
+    16 x 2^19 x 2 layout among them, 200k points): the features and d x
+    equal to the bit (the same operations in the same order, built without
+    FMA contraction), each row of the table gradient within 1e-5 of the sum
+    of |terms| it adds (float atomics in any order), with d x asked for and
+    without; the launch counts show both kernels ran."""
+    table, x, ct, grid = grid_corner_cases[name]
+    before = rk.launch_counts()
+    y = hg.hash_grid(table, x, grid)
+    d_table, d_x = hg.hash_grid_backward(table, x, ct, grid, need_table=True,
+                                         need_x=True)
+    d_only, no_x = hg.hash_grid_backward(table, x, ct, grid)
+    torch.cuda.synchronize()
+    after = rk.launch_counts()
+    assert after["hash_grid"] == before["hash_grid"] + 1
+    assert after["hash_grid_backward"] == before["hash_grid_backward"] + 2
+    assert torch.equal(y, hg.hash_grid_plain(table, x, grid))
+    _, want_x = hg.hash_grid_backward_plain(table, x, ct, grid,
+                                            need_table=False, need_x=True)
+    assert torch.equal(d_x, want_x)
+    assert no_x is None
+    for got in (d_table, d_only):
+        assert table_rows_err(got, table, x, ct, grid) <= 1e-5
 
 
 @pytest.mark.cuda

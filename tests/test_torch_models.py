@@ -20,6 +20,7 @@ from tssplat_tpu.optim import cosine_annealing_lr as jax_cos
 from tssplat_torch import convert
 from tssplat_torch.materials import ExplicitMaterial, contract_to_unisphere
 from tssplat_torch.models import networks as tn
+from tssplat_torch.ops import hash_grid as hg
 from tssplat_torch.optim import (adam, adam_uniform, apply_updates,
                                  cosine_annealing_lr, cosine_decay_schedule)
 from tssplat_torch.utils.tree import tree_leaves
@@ -85,7 +86,7 @@ def test_hash_coords_wrap_like_uint32():
     p = jn._HASH_PRIMES
     want = ((cu[:, 0] * p[0]) ^ (cu[:, 1] * p[1]) ^ (cu[:, 2] * p[2])) \
         % np.uint32(1 << 12)
-    got = tn._hash_coords(torch.from_numpy(c), 1 << 12)
+    got = hg.hash_coords(torch.from_numpy(c), 1 << 12)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 

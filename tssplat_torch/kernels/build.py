@@ -38,6 +38,7 @@ SOURCES = {
     "shade": "shade.cu",
     "interp": "interp.cu",
     "winner_rows": "winner_rows.cu",
+    "hash_grid": "hash_grid.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,6 +65,10 @@ SIGNATURES = {
                                [_VOID] * 3 + [_INT] * 6 + [_VOID] * 3),
     "tss_winner_rows_launch": ("winner_rows",
                                [_VOID] * 3 + [_INT] * 4 + [_VOID] * 5),
+    "tss_hash_grid_launch": ("hash_grid",
+                             [_VOID] * 2 + [_INT] * 4 + [_VOID] * 3),
+    "tss_hash_grid_grad_launch": ("hash_grid",
+                                  [_VOID] * 3 + [_INT] * 4 + [_VOID] * 4),
 }
 
 

@@ -13,9 +13,11 @@ points only, puts the colours back on the image, composites, antialiases
 and takes the L1: the visibility kernel is not launched inside a step.
 
 The JAX package keeps static hash-table buckets here to avoid TPU
-scatters; the port does not: autograd's scatter-add of the gathered table
-rows gives the same gradients (tests/test_torch_texture.py holds the loss
-and gradients against JAX's exact loss and the port's dense path).
+scatters; the port does not: on the card the encoding is the kernel pair
+K9 (``ops/hash_grid.py``), whose backward adds the table gradient with
+atomics, and on the CPU autograd's scatter-add of the gathered table rows
+gives the same gradients (tests/test_torch_texture.py holds the loss and
+gradients against JAX's exact loss and the port's dense path).
 
 View-sharded over W ranks (``shard=(rank, W)``, JAX's ``mesh``,
 exact_stage.py:154-245), each rank caches only its contiguous group of the

@@ -19,10 +19,12 @@ card start alike for one seed) and ``y = apply_fn(params, x, step)``.
   create_network_with_input_encoding
 
 MLP weights are stored (in, out), as the JAX package stores them, so a
-``material.npz`` of either package loads in the other. The JAX package's
-bucketed table gradient (``build_hash_grad_buckets`` and its appliers) is
-not ported: it exists to avoid TPU scatters, and on the card autograd's
-scatter-add of the gathered table rows gives the same loss and gradients.
+``material.npz`` of either package loads in the other. The grid's lookup
+lives in ``ops/hash_grid.py``: the plain chain with autograd on the CPU,
+the kernel pair K9 on the card, whose backward adds the table gradient
+with atomics. The JAX package's bucketed table gradient
+(``build_hash_grad_buckets`` and its appliers) is not ported: it exists to
+avoid TPU scatters.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 import torch.nn.functional as tnf
 
 from ..device import DeviceLike, resolve_device
-from ..utils.profiling import span
+from ..ops.hash_grid import (grid_corners, grid_exact, grid_levels,
+                              grid_lookup)
 
 
 def get_activation(name) -> Callable:
@@ -97,77 +100,6 @@ class Module(NamedTuple):
 # hash grid
 # ---------------------------------------------------------------------------
 
-_HASH_PRIMES = (1, 2654435761, 805459861)
-_U32 = 0xFFFFFFFF
-
-# corner i is the bit pattern (i>>2, i>>1, i) & 1 (JAX's _CORNERS, the
-# meshgrid over three {0,1} axes in "ij" order)
-_CORNERS = [((i >> 2) & 1, (i >> 1) & 1, i & 1) for i in range(8)]
-
-
-def _hash_coords(c: torch.Tensor, hashmap_size: int) -> torch.Tensor:
-    """Spatial hash of non-negative int64 grid coordinates (…,3) into
-    [0, hashmap_size): JAX's uint32 arithmetic with wraparound, done in
-    int64 and masked to 32 bits after each product and the xors."""
-    h = (c[..., 0] * _HASH_PRIMES[0]) & _U32
-    h = h ^ ((c[..., 1] * _HASH_PRIMES[1]) & _U32)
-    h = h ^ ((c[..., 2] * _HASH_PRIMES[2]) & _U32)
-    return h % hashmap_size
-
-
-def _grid_levels(n_levels, base_resolution, per_level_scale,
-                 log2_hashmap_size):
-    """Per-level resolutions, dense flags and the table size per level:
-    a level whose (r+1)^3 grid fits the table is indexed densely."""
-    H = 1 << log2_hashmap_size
-    res = [int(math.floor(base_resolution * per_level_scale ** l))
-           for l in range(n_levels)]
-    dense = [(r + 1) ** 3 <= H for r in res]
-    return res, dense, H
-
-
-def _grid_level_setup(x: torch.Tensor, r: int):
-    """(lower corner (…,3) int64, fraction (…,3)) of x in [0,1]^3 on a
-    grid of resolution r."""
-    xl = x * float(r)
-    i0 = torch.clamp(torch.floor(xl).to(torch.int64), 0, r - 1)
-    return i0, xl - i0.to(x.dtype)
-
-
-def _grid_corners(x: torch.Tensor, res, dense, H):
-    """Table rows (…,L,8) int64 and trilinear weights (…,L,8) of every
-    (level, corner), corners in _CORNERS order; each level's eight corners
-    in one pass of elementwise ops."""
-    with span("tssplat.sync.encoding"):      # a host-to-device copy
-        corners = torch.as_tensor(_CORNERS, dtype=torch.int64,
-                                  device=x.device)
-    upper = corners.bool()                                  # (8,3)
-    idx, wgt = [], []
-    for l, r in enumerate(res):
-        i0, w = _grid_level_setup(x, r)
-        c = i0[..., None, :] + corners                      # (…,8,3)
-        if dense[l]:
-            rows = (c[..., 0] * (r + 1) + c[..., 1]) * (r + 1) + c[..., 2]
-        else:
-            rows = _hash_coords(c, H)
-        idx.append(rows + l * H)
-        f = torch.where(upper, w[..., None, :], 1.0 - w[..., None, :])
-        wgt.append(f[..., 0] * f[..., 1] * f[..., 2])
-    return torch.stack(idx, dim=-2), torch.stack(wgt, dim=-2)
-
-
-def _grid_exact(table: torch.Tensor, x: torch.Tensor, res, dense, H):
-    """Exact multi-level trilinear lookup (…,3) -> (…, L*F): each level's
-    corners summed in _CORNERS order from the first, as the JAX package
-    sums them."""
-    idx, wgt = _grid_corners(x, res, dense, H)             # (…,L,8)
-    prod = table[idx] * wgt[..., None]                     # (…,L,8,F)
-    feats = prod[..., 0, :]
-    for ci in range(1, 8):
-        feats = feats + prod[..., ci, :]
-    return feats.reshape(*x.shape[:-1], -1)
-
-
 class _StochasticTableGrad(torch.autograd.Function):
     """Exact forward and position gradient; the table gradient scatters
     each level's feature cotangent, unscaled, to one corner drawn with
@@ -182,7 +114,7 @@ class _StochasticTableGrad(torch.autograd.Function):
         ctx.save_for_backward(table, x, u)
         ctx.grid = grid
         with torch.no_grad():
-            return _grid_exact(table, x, *grid)
+            return grid_exact(table, x, *grid)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -194,7 +126,7 @@ class _StochasticTableGrad(torch.autograd.Function):
         d_feats = d_out.reshape(*N, L, F)
         d_table = d_x = None
         if ctx.needs_input_grad[0]:
-            idx, wgt = _grid_corners(x, res, dense, H)     # (…,L,8)
+            idx, wgt = grid_corners(x, res, dense, H)      # (…,L,8)
             sel = []
             for l in range(L):
                 acc = torch.zeros(N, dtype=x.dtype, device=x.device)
@@ -212,7 +144,7 @@ class _StochasticTableGrad(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             with torch.enable_grad():
                 xx = x.detach().requires_grad_(True)
-                out = _grid_exact(table.detach(), xx, res, dense, H)
+                out = grid_exact(table.detach(), xx, res, dense, H)
                 (d_x,) = torch.autograd.grad(out, xx, d_out)
         return d_table, d_x, None, None
 
@@ -232,11 +164,11 @@ def hash_grid_encoding(n_input_dims: int = 3, n_levels: int = 16,
     ``stochastic_table_grad`` and uniforms ``grad_u`` (…, n_levels) —
     or a CPU generator ``grad_gen`` to draw them from — the table gradient
     is the one-corner-per-level estimate of ``_StochasticTableGrad``;
-    otherwise autograd's exact gradient (a scatter-add of the gathered
-    rows)."""
+    otherwise the exact gradient (``ops/hash_grid.py grid_lookup``:
+    autograd on the CPU, K9's backward on the card)."""
     assert n_input_dims == 3, "hash grid implemented for 3-D inputs"
-    grid = _grid_levels(n_levels, base_resolution, per_level_scale,
-                        log2_hashmap_size)
+    grid = grid_levels(n_levels, base_resolution, per_level_scale,
+                       log2_hashmap_size)
     H = grid[2]
     F = n_features_per_level
 
@@ -254,7 +186,7 @@ def hash_grid_encoding(n_input_dims: int = 3, n_levels: int = 16,
                                     generator=grad_gen).to(x.device)
             return _StochasticTableGrad.apply(params["table"], x, grad_u,
                                               grid)
-        return _grid_exact(params["table"], x, *grid)
+        return grid_lookup(params["table"], x, grid)
 
     return Module(init_fn, apply_fn, n_levels * F, n_input_dims)
 

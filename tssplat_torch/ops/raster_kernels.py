@@ -42,7 +42,9 @@ each tile's candidates, which defines the result and is what a CPU tensor
 gets, and ``visibility_capped_boxed_plain``, the kernels' own search inside
 each face's pixel box, which the tests hold against the walk. What bounds
 each kernel and what its design does about it is noted at the top of its
-source.
+source. ``KERNELS`` and ``launch_counts()`` also count K9, the hash-grid
+encoding's pair (``ops/hash_grid.py``), so that one count shows every
+hand-written kernel a run launched.
 """
 
 from __future__ import annotations
@@ -51,46 +53,18 @@ from typing import Tuple
 
 import torch
 
-from ..kernels import build
+from ..kernels.launch import check as _check
+from ..kernels.launch import launch as _launch
+from ..kernels.launch import on_cuda as _on_cuda
+from ..kernels.launch import ptr as _ptr
 from ..utils.debug import check_kernel_outputs
 from ..utils.profiling import span
 from .binning import (CAP_TILE_H, CAP_TILE_W, CappedBins, FaceBins, TILE_H,
                       TILE_W)
+from .hash_grid import hash_grid, hash_grid_backward
 from .screen import AREA_EPS, W_EPS, edge, ndc_center, pixel_centers
 
 _INF = float("inf")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _on_cuda(t: torch.Tensor, name: str) -> bool:
-    """False for a CPU tensor (plain version), True for CUDA (kernel)."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return True
-
-
-def _launch(fn_name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = build.entry(fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")
-
-
-def _ptr(t: torch.Tensor) -> int:
-    return t.data_ptr()
 
 
 def _viewport(viewport, H: int) -> Tuple[int, int]:
@@ -1028,9 +1002,11 @@ def winner_rows_plain(rast: torch.Tensor, tbl6: torch.Tensor,
     return ids, z, rows[:, :6].contiguous(), rows[:, 6:].contiguous()
 
 
+# every hand-written kernel of the port, K9 (``ops/hash_grid.py``) too
 KERNELS = (visibility, visibility_capped_ids, visibility_capped,
            wsr_table_grad, aa_forward, aa_backward, shade, shade_backward,
-           interp, interp_backward, winner_rows)
+           interp, interp_backward, winner_rows, hash_grid,
+           hash_grid_backward)
 
 
 def reset_launch_counts() -> None:
