@@ -9,8 +9,10 @@ kernels are held against both on the card by tests/test_torch_cuda.py.
 import pytest
 import torch
 
+from tssplat_torch.ops import binning
 from tssplat_torch.ops import raster_kernels as rk
-from tssplat_torch.tools.vis_cases import CASE_NAMES, capped_cases
+from tssplat_torch.tools.vis_cases import (CASE_NAMES, capped_cases,
+                                           three_spheres)
 
 torch.set_num_threads(1)
 
@@ -127,3 +129,47 @@ def test_box_is_conservative_on_the_sphere_scene(cases):
     assert empty.tolist() == [False, True, True, False, True, True]
     assert (p0[0], p1[0]) == (69, 84)     # 69.9..82.7, slack and a pixel
     assert (p0[3], p1[3]) == (62, 127)
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_tile_counts_equal_bincount(cases, name):
+    """The binning's fixed-length count of each tile's pairs
+    (``binning.tile_counts``) equals ``torch.bincount``'s, and the pair
+    total of the front is the expansion's length, on every case's face
+    table on the capped layout's 8x128 tiles and on K1's 16x16; every face
+    live, and only the finite ones."""
+    bins, res = cases[name]
+    B, F = bins.table.shape[:2]
+    for live in (torch.ones((B, F), dtype=torch.bool),
+                 torch.isfinite(bins.table).all(-1)):
+        for th, tw in ((binning.CAP_TILE_H, binning.CAP_TILE_W),
+                       (binning.TILE_H, binning.TILE_W)):
+            front = binning._pair_front(bins.table, live, res, th, tw)
+            code = binning._pair_codes(front)
+            n = B * front.nty * front.ntx
+            assert int(front.total) == code.numel()
+            assert torch.equal(binning.tile_counts(code, F, n),
+                               torch.bincount(code // F, minlength=n))
+
+
+@pytest.mark.parametrize("k", [None, 8], ids=["default_k", "k8_drops"])
+@pytest.mark.parametrize("rows", [True, False], ids=["K2b", "K2a"])
+def test_capped_bins_into_out_buffers(k, rows):
+    """``bin_faces_capped`` is ``capped_front`` then ``capped_back``; the
+    back with ``out`` (bins made for other positions) writes the same bits
+    as a fresh binning into out's tensors, with the front's table."""
+    pos, nbrs = three_spheres("cpu")
+    nb = nbrs if rows else None
+    res = (64, 128)
+    k = binning.capacity(k, nbrs.shape[0], res)
+    want = binning.bin_faces_capped(pos, nb, res, k)
+    out = binning.bin_faces_capped(pos * 0.9, nb, res, k)
+    front = binning.capped_front(pos, nb, res, k)
+    got = binning.capped_back(front, out=out)
+    assert got.table is front.table
+    for name in ("counts", "cand", "n_drop"):
+        assert getattr(got, name) is getattr(out, name)
+    for name in ("table", "counts", "cand", "n_drop"):
+        assert torch.equal(_bits(getattr(got, name)),
+                           _bits(getattr(want, name))), name
+    assert (got.nty, got.ntx) == (want.nty, want.ntx)

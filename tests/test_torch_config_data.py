@@ -179,6 +179,37 @@ def test_loader_batches_match_jax(world_size):
                                                rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("batch_size, world_size", [(3, 1), (3, 3), (7, 1),
+                                                     (2, 2)])
+def test_loader_device_ids_are_the_batch_indices(batch_size, world_size):
+    """The loader's device table gives ``batch_indices(it, fw, r)`` for
+    every iteration, forward and rank; a call gathers into buffers it
+    reuses (marked REUSED) and returns those ids' views of ``data_all``."""
+    from tssplat_torch.data.loader import REUSED
+
+    cfg = dict(batch_size=batch_size, total_num_iter=6,
+               world_size=world_size, rank=0)
+    loader = ArrayDataLoader(cfg, device="cpu", **_arrays(7))
+    assert loader.ids.shape == (6, 7) and loader.ids.dtype == torch.int64
+    for it in range(6):
+        for fw in range(loader.num_forward_per_iter):
+            for r in range(world_size):
+                np.testing.assert_array_equal(
+                    loader.device_ids(it, fw, r).numpy(),
+                    loader.batch_indices(it, fw, r))
+    first = loader(0, 0)
+    img0 = first["img"].clone()
+    again = loader(1, 0)
+    ids = torch.as_tensor(loader.batch_indices(1, 0)).long()
+    for k in ("mv", "mvp", "campos", "img", "background", "n", "d"):
+        assert again[k] is first[k] and getattr(again[k], REUSED)
+        assert torch.equal(again[k], loader.data_all[k][ids])
+    assert torch.equal(again["view_idx"], ids.to(torch.int32))
+    assert torch.equal(loader(0, 0)["img"], img0)
+    with pytest.raises(IndexError):
+        loader.device_ids(0, loader.num_forward_per_iter)
+
+
 @pytest.fixture(scope="module")
 def datasets(tmp_path_factory):
     """The ellipsoid icosphere(3) * (0.30, 0.24, 0.18) at N_VIEWS x 128²,

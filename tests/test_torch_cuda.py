@@ -823,3 +823,80 @@ def test_shaded_path_kernels_match_plain(shaded_corner_cases, name):
     assert set(errs) == {"shade", "shade_backward", "interp",
                          "interp_backward", "winner_rows"}
     assert all(after[k] > before[k] for k in errs)
+
+
+@pytest.mark.cuda
+def test_graphed_step_matches_the_eager_step(monkeypatch):
+    """The geometry step replayed from its CUDA graph against the same step
+    run eagerly (``graphs.eager``: the binning and the body the capture
+    wraps), 12 iterations of three spheres at 2 views of 128² on the capped
+    layout, the depth and normal terms: the depth term switches on at
+    iteration 1 (a second step, captured at iteration 2), the barrier's
+    order after iteration 5 (a second capture, at 7), the energy ramp
+    moves every iteration and the grad cap advances at counter 8. Losses,
+    tet_v, g1, g2 and best_params agree within K3's tolerance (its atomics
+    reorder sums); a state and outputs kept from iteration 3 are unchanged
+    after the later replays; the graph replayed 9 times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    from torch.utils._pytree import tree_leaves
+
+    from tssplat_torch.geometry import TetMeshGeometry
+    from tssplat_torch.mesh.spheres import icosphere
+    from tssplat_torch.ops import binning
+    from tssplat_torch.optim import adam_uniform, cosine_annealing_lr
+    from tssplat_torch.tools.synthetic import render_views_of_mesh
+    from tssplat_torch.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    res = 128
+    sv, sf = icosphere(subdivisions=2)
+    mvp, _, campos = fibonacci_views(2)
+    rgba, depth, normal = render_views_of_mesh(
+        sv * np.asarray([0.30, 0.24, 0.18]), sf, mvp, campos, res,
+        device=dev)
+    batch = {k: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                device=dev)
+             for k, a in (("mvp", mvp), ("campos", campos), ("img", rgba),
+                          ("d", depth[..., None]), ("n", normal))}
+    parts = [tet_sphere(0.12, radius=0.2, center=c)
+             for c in ((-0.15, 0.0, 0.0), (0.15, 0.05, 0.0),
+                       (0.0, 0.2, 0.1))]
+    offs = np.cumsum([0] + [p[0].shape[0] for p in parts])[:-1]
+    mesh = TetMesh(np.concatenate([p[0] for p in parts]),
+                   np.concatenate([p[1] + o for p, o in zip(parts, offs)]))
+    geo = TetMeshGeometry(dict(use_smooth_barrier=True,
+                               smooth_barrier_param={
+                                   "increase_order_iter": 5}),
+                          tetmesh=mesh, device=dev)
+    monkeypatch.setattr(binning, "FLAT_BUDGET_BYTES", 0)   # capped layout
+    init_fn, update_fn = adam_uniform(
+        cosine_annealing_lr(0.2, 100), grad_limit=True,
+        grad_limit_values=(0.01, 0.005), grad_limit_iters=(8,))
+
+    def steps():
+        return {fd: make_train_step(geo.statics, update_fn, resolution=res,
+                                    fit_depth=fd, fit_normal=True)
+                for fd in (False, True)}
+
+    graphed, eager = steps(), steps()
+    s_g = s_e = init_train_state(geo.tet_v, init_fn)
+    kept = None
+    for it in range(12):
+        s_g, o_g = graphed[it >= 1](s_g, batch, it)
+        s_e, o_e = eager[it >= 1].graphs.eager(s_e, batch, it)
+        if it == 3:
+            kept = (s_g, o_g)
+            snapshot = [t.clone() for t in tree_leaves(kept)]
+        for a, b in zip((*o_g[:3], s_g.params, s_g.opt_state.g1,
+                         s_g.opt_state.g2, s_g.best_params),
+                        (*o_e[:3], s_e.params, s_e.opt_state.g1,
+                         s_e.opt_state.g2, s_e.best_params)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        assert int(o_g[3]) == int(o_e[3]) == 0
+    assert graphed[True].graphs.replays == 9
+    assert graphed[False].graphs.replays == 0
+    assert int(s_g.opt_state.limit_ptr) == int(s_e.opt_state.limit_ptr) == 1
+    for a, b in zip(tree_leaves(kept), snapshot):
+        assert torch.equal(a, b)

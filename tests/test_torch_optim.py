@@ -93,3 +93,87 @@ def test_cosine_decay_matches_optax(count):
     np.testing.assert_allclose(
         float(s_t(torch.tensor(count, dtype=torch.int32))),
         float(s_j(jnp.int32(count))), rtol=1e-6)
+
+
+def _adam_uniform_per_step_constants(lr, b1=0.9, b2=0.999, values=(),
+                                     iters=(), eps=1e-8):
+    """AdamUniform's update as it was written before its constants were
+    made once: every constant copied to the device in each update, the
+    grad-limit tables indexed by 0-dim tensors."""
+    def update(grads, st):
+        dev = grads.device
+        step = st.count + 1
+        stepf = step.to(torch.float32)
+        b1c = 1.0 - torch.pow(torch.tensor(b1, device=dev), stepf)
+        b2c = 1.0 - torch.pow(torch.tensor(b2, device=dev), stepf)
+        g1 = b1 * st.g1 + (1.0 - b1) * grads
+        g2 = b2 * st.g2 + (1.0 - b2) * grads * grads
+        rate = lr(st.count)
+        vals = torch.tensor(values, device=dev)
+        cap = vals[torch.clamp_max(st.limit_ptr, len(values) - 1)]
+        its = torch.tensor(iters, dtype=torch.int32, device=dev)
+        reached = st.cc >= its[torch.clamp_max(st.limit_ptr, len(iters) - 1)]
+        ptr = st.limit_ptr + ((st.limit_ptr < len(iters)) & reached).to(
+            torch.int32)
+        gr = (g1 / b1c) / (eps + torch.sqrt(torch.max(g2 / b2c)))
+        s = torch.max(torch.abs(gr))
+        gr = torch.where(s > cap, gr * (cap / torch.clamp_min(s, 1e-30)), gr)
+        return -rate * gr, st._replace(count=step, g1=g1, g2=g2,
+                                       limit_ptr=ptr, cc=st.cc + 1)
+    return update
+
+
+def _adam_per_step_constants(lr, b1=0.9, b2=0.999, eps=1e-8):
+    """Adam's update as it was written before its constants were made
+    once."""
+    def update(grads, st):
+        dev = grads.device
+        mu = (1.0 - b1) * grads + b1 * st.mu
+        nu = (1.0 - b2) * (grads * grads) + b2 * st.nu
+        count = st.count + 1
+        n = count.to(torch.float32)
+        c1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), n)
+        c2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), n)
+        rate = lr(st.count) if callable(lr) else torch.tensor(lr, device=dev)
+        return -rate * ((mu / c1) / (torch.sqrt(nu / c2) + eps)), \
+            st._replace(count=count, mu=mu, nu=nu)
+    return update
+
+
+@pytest.mark.parametrize("kind", ["adam_uniform", "adam", "adam_const_lr"])
+def test_constants_made_once_give_the_same_bits(kind):
+    """Twenty updates from seeded gradients of varying scale, the state fed
+    back each step: the optimizers, their constants made once on the
+    device, give the bits of their former per-step copies; AdamUniform's
+    cap pointer advances twice on the way (tables (0.05, 0.01, 0.002) at
+    counters (6, 13))."""
+    if kind == "adam_uniform":
+        sched = cosine_annealing_lr(0.2, 20)
+        values, iters = (0.05, 0.01, 0.002), (6, 13)
+        init, upd = adam_uniform(sched, grad_limit=True,
+                                 grad_limit_values=values,
+                                 grad_limit_iters=iters)
+        before = _adam_uniform_per_step_constants(sched, values=values,
+                                                  iters=iters)
+    else:
+        sched = cosine_decay_schedule(0.2, 20, alpha=5e-4) \
+            if kind == "adam" else 0.05
+        init, upd = adam(sched)
+        before = _adam_per_step_constants(sched)
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.normal(size=(40, 3)).astype(np.float32))
+    st_a = st_b = init(p)
+    ptrs = []
+    for _ in range(20):
+        g = torch.from_numpy((rng.normal(size=p.shape)
+                              * 10.0 ** rng.uniform(-4, 1)).astype(
+                                  np.float32))
+        u_a, st_a = upd(g, st_a)
+        u_b, st_b = before(g, st_b)
+        assert torch.equal(u_a.view(torch.int32), u_b.view(torch.int32))
+        for a, b in zip(st_a, st_b):
+            assert torch.equal(a, b)
+        if kind == "adam_uniform":
+            ptrs.append(int(st_a.limit_ptr))
+    if kind == "adam_uniform":
+        assert ptrs == [0] * 6 + [1] * 7 + [2] * 7

@@ -123,36 +123,34 @@ def _inside(spans, child, parent):
 
 
 CHUNKS = VIEWS // CHUNK
-# the spans each step opens, and (child, parent): every child inside one
+# the spans each step opens, and (child, parent): every child inside one;
+# the binning's pair total is a step's only wait (no bincount read, no
+# copy of the optimizer's constants, the best iteration or the normals')
 GEOMETRY = {"tssplat.step": 1, "tssplat.visibility": CHUNKS,
             "tssplat.binning": CHUNKS, "tssplat.sync.binning": CHUNKS,
-            "tssplat.sync.bincount": CHUNKS,
+            "tssplat.sync.bincount": 0,
             # the forward, and the checkpoint's recompute in the backward
             "tssplat.render": 2 * CHUNKS, "tssplat.energy": 1,
             "tssplat.backward": 1, "tssplat.optim": 1,
-            # AdamUniform's constants (3 sites) and the best iteration
-            "tssplat.sync.optim": 4}
-# one batch: one binning and one render, no recompute
-ONE_BATCH = {**GEOMETRY, "tssplat.visibility": 1, "tssplat.binning": 1,
-             "tssplat.sync.binning": 1, "tssplat.sync.bincount": 1,
-             "tssplat.render": 1}
+            "tssplat.sync.optim": 0}
+# one batch: one binning, in front of the rest of the step (its own
+# visibility span), the visibility kernel's span in the render, and one
+# render, no recompute
+ONE_BATCH = {**GEOMETRY, "tssplat.visibility": 2, "tssplat.binning": 1,
+             "tssplat.sync.binning": 1, "tssplat.render": 1}
 NESTED = [("tssplat.visibility", "tssplat.step"),
           ("tssplat.binning", "tssplat.visibility"),
           ("tssplat.sync.binning", "tssplat.binning"),
-          ("tssplat.sync.bincount", "tssplat.binning"),
           ("tssplat.render", "tssplat.step"),
           ("tssplat.energy", "tssplat.step"),
           ("tssplat.backward", "tssplat.step"),
-          ("tssplat.optim", "tssplat.step"),
-          ("tssplat.sync.optim", "tssplat.optim")]
+          ("tssplat.optim", "tssplat.step")]
 # the normal shading in each render
 SHADED = NESTED + [("tssplat.sync.row_gather", "tssplat.step"),
-                   ("tssplat.sync.normals", "tssplat.render"),
-                   ("tssplat.normals", "tssplat.render"),
-                   ("tssplat.sync.normals", "tssplat.normals")]
-# one batch: the vertex normals' +z and the z flip wait once each; the
-# CPU's row gathers wait 11 times with the depth term, 8 without it
-NORMALS = {"tssplat.normals": 1, "tssplat.sync.normals": 2}
+                   ("tssplat.normals", "tssplat.render")]
+# one batch: the normal shading once; the CPU's row gathers wait 11 times
+# with the depth term, 8 without it
+NORMALS = {"tssplat.normals": 1, "tssplat.sync.normals": 0}
 CASES = {
     "silhouette": ({**GEOMETRY, "tssplat.normals": 0}, NESTED),
     "silhouette_one_batch": ({**ONE_BATCH, "tssplat.normals": 0}, NESTED),
@@ -174,14 +172,14 @@ CASES = {
     "texture_sampled": ({"tssplat.step": 1, "tssplat.encoding": 1,
                          "tssplat.mlp": 1, "tssplat.antialias_color": 0,
                          "tssplat.backward": 1, "tssplat.optim": 1,
-                         "tssplat.sync.optim": 4, "tssplat.render": 0,
+                         "tssplat.sync.optim": 0, "tssplat.render": 0,
                          "tssplat.visibility": 0,
                          "tssplat.sync.row_gather": 0},
                         [("tssplat.encoding", "tssplat.step"),
                          ("tssplat.mlp", "tssplat.step"),
                          ("tssplat.sync.encoding", "tssplat.encoding"),
                          ("tssplat.backward", "tssplat.step"),
-                         ("tssplat.sync.optim", "tssplat.optim")]),
+                         ("tssplat.optim", "tssplat.step")]),
 }
 
 

@@ -193,3 +193,22 @@ def test_run_steps_equals_single_steps(kind):
     for a, b in zip(got_leaves, want_leaves):
         assert torch.equal(a, b)
     assert all(torch.isfinite(o[0]) for o in got)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_step_off_the_card_runs_its_body_eagerly(kind):
+    """A geometry step of one batch holds a GraphedStep (the texture
+    steps none); off CUDA it replays no graph, and its result is bit-equal
+    to ``graphs.eager``, the binning and the body the graph would replay
+    (the chunked step takes the chunk loop instead, the same bits as
+    before it)."""
+    step, state, batch = _kind(kind)
+    graphs = step.graphs
+    assert (graphs is None) == kind.startswith("texture")
+    got = step(tree_map(torch.clone, state), batch, 1)
+    if graphs is None or kind.endswith("chunked"):
+        return
+    want = graphs.eager(tree_map(torch.clone, state), batch, 1)
+    assert graphs.replays == 0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .geometry.tet_geometry import GeometryStatics
+from .geometry.tet_geometry import GeometryStatics, normal_constants
 from .ops.energy import EnergyOps, energy_ops_from_arrays
 from .optim.adam import AdamState
 from .optim.adam_uniform import AdamUniformState
@@ -57,6 +57,7 @@ def energy_ops(ops, device: DeviceLike = None) -> EnergyOps:
 def geometry_statics(statics, device: DeviceLike = None) -> GeometryStatics:
     """A JAX ``GeometryStatics``."""
     dev = resolve_device(device)
+    z_up, z_flip = normal_constants(dev)
     return GeometryStatics(
         surface_vid=_i64(statics.surface_vid, dev),
         surface_fid=_i64(statics.surface_fid, dev),
@@ -66,7 +67,8 @@ def geometry_statics(statics, device: DeviceLike = None) -> GeometryStatics:
         else energy_ops(statics.energy, dev),
         smooth_coeff=float(statics.smooth_coeff),
         barrier_coeff=float(statics.barrier_coeff),
-        increase_order_iter=int(statics.increase_order_iter))
+        increase_order_iter=int(statics.increase_order_iter),
+        z_up=z_up, z_flip=z_flip)
 
 
 def tet_v(a, device: DeviceLike = None) -> torch.Tensor:

@@ -14,6 +14,13 @@ per-iteration batch index lists computed up front and split by
     99-106); without a ``rank`` in the config, the process's rank
     (``utils/env.py get_rank``) where ``world_size`` > 1, else 0;
   - ``num_forward_per_iter = ceil(n / (bs * world_size))``.
+
+A call gathers on the device alone: every iteration's shuffle is a row of
+a device table (``ids``) made with the lists, so a call copies nothing
+from the host and never waits for the device. It gathers each view tensor
+into an output buffer of its own that the next call writes again (a batch
+is the loader's until its next call), marked ``REUSED`` so that the graphed
+geometry step (``train.py``) reads it in place instead of copying it.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ from ..utils.env import get_rank
 from ..utils.profiling import span
 from .datasets import (ArrayDataset, BlenderImgDataset, MitsubaImgDataset,
                        Wonder3DImgDataset)
+
+# the attribute that marks a batch tensor as a loader's reused output buffer
+REUSED = "_loader_reuses"
+_GATHERED = ("mv", "mvp", "campos", "img", "background", "n", "d")
 
 
 class ViewDataLoader:
@@ -100,9 +111,11 @@ class ViewDataLoader:
         rng.shuffle(warmup)
 
         self.batch_list = []
+        shuffles = []
         for _ in range(c.total_num_iter):
             index_list = list(range(n))
             rng.shuffle(index_list)
+            shuffles.append(index_list)
             batch_iter = []
             for _fw in range(self.num_forward_per_iter):
                 per_rank = []
@@ -112,6 +125,11 @@ class ViewDataLoader:
                     per_rank.append(index_list[start:end])
                 batch_iter.append(per_rank)
             self.batch_list.append(batch_iter)
+        # (total_num_iter, n): a rank's ids of an iteration are a slice of
+        # its row, the same for every forward (as ``batch_list`` has them)
+        self.ids = torch.as_tensor(np.asarray(shuffles, np.int64).reshape(
+            c.total_num_iter, n), device=self.device)
+        self._out = {}
 
     @property
     def rank(self) -> int:
@@ -126,23 +144,33 @@ class ViewDataLoader:
         r = self.rank if rank is None else rank
         return np.asarray(self.batch_list[it][forward_id][r], np.int32)
 
+    def device_ids(self, it: int, forward_id: int,
+                   rank: Optional[int] = None) -> torch.Tensor:
+        """``batch_indices`` as an int64 tensor on the device: a slice of
+        the ``ids`` table (every forward of an iteration takes the same)."""
+        if not 0 <= forward_id < self.num_forward_per_iter:
+            raise IndexError(f"forward {forward_id} of "
+                             f"{self.num_forward_per_iter}")
+        r = self.rank if rank is None else rank
+        bs, n = self.cfg.batch_size, self.ids.shape[1]
+        return self.ids[it, min(r * bs, n):min((r + 1) * bs, n)]
+
     def __call__(self, it: int, forward_id: int, rank: Optional[int] = None):
+        """The batch of (it, forward_id) for ``rank``: its views' tensors,
+        gathered into this loader's reused buffers (see the module doc)."""
         with span("tssplat.loader"):
-            ids = self.batch_indices(it, forward_id, rank)
-            idx = torch.as_tensor(ids, dtype=torch.int64, device=self.device)
+            idx = self.device_ids(it, forward_id, rank)
             d = self.data_all
-            return {
-                "mv": d["mv"][idx],
-                "mvp": d["mvp"][idx],
-                "campos": d["campos"][idx],
-                "resolution": d["resolution"],
-                "spp": d["spp"],
-                "img": d["img"][idx],
-                "background": d["background"][idx],
-                "n": d["n"][idx],
-                "d": d["d"][idx],
-                "view_idx": idx.to(torch.int32),
-            }
+            out = {"resolution": d["resolution"], "spp": d["spp"],
+                   "view_idx": idx.to(torch.int32)}
+            for k in _GATHERED:
+                buf = self._out.get((k, idx.shape[0]))
+                if buf is None:
+                    buf = d[k].new_empty((idx.shape[0], *d[k].shape[1:]))
+                    setattr(buf, REUSED, True)
+                    self._out[(k, idx.shape[0])] = buf
+                out[k] = torch.index_select(d[k], 0, idx, out=buf)
+            return out
 
 
 @DATALOADERS.register("MistubaImgDataLoader")      # sic — reference name

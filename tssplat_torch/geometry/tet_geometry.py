@@ -35,6 +35,9 @@ class GeometryStatics(NamedTuple):
     smooth_coeff: float
     barrier_coeff: float
     increase_order_iter: int
+    # the normal shading's constants, made once on the statics' device
+    z_up: torch.Tensor             # (3,) f32 (0,0,1): a degenerate normal
+    z_flip: torch.Tensor           # (3,) f32 (1,1,-1): Wonder3D's z flip
 
 
 class GeometryForwardData(NamedTuple):
@@ -43,15 +46,26 @@ class GeometryForwardData(NamedTuple):
     energy: torch.Tensor           # scalar regularization energy
 
 
+def normal_constants(device: DeviceLike):
+    """(z_up, z_flip) of ``GeometryStatics`` on ``device``."""
+    dev = resolve_device(device)
+    return (torch.tensor([0.0, 0.0, 1.0], device=dev),
+            torch.tensor([1.0, 1.0, -1.0], device=dev))
+
+
 def geometry_forward(tet_v: torch.Tensor, geom: GeometryStatics,
-                     it: int) -> GeometryForwardData:
+                     it: int, coeffs=None) -> GeometryForwardData:
     """Surface gather + the scheduled energy (coefficient ramp and the
-    barrier order switch, reference energies/smooth_barrier.py:47-63)."""
+    barrier order switch, reference energies/smooth_barrier.py:47-63).
+    ``coeffs`` (c1, c2), 0-dim tensors on tet_v's device, stand for the
+    ramp's ``energy_coeff_schedule(it, ...)`` (the graphed step reads them
+    from a buffer it writes each iteration); the order comes from ``it``."""
     v_pos = tet_v[geom.surface_vid]
     if geom.energy is not None:
         with span("tssplat.energy"):
-            c1, c2 = energy_coeff_schedule(it, geom.smooth_coeff,
-                                           geom.barrier_coeff)
+            c1, c2 = energy_coeff_schedule(
+                it, geom.smooth_coeff, geom.barrier_coeff) \
+                if coeffs is None else coeffs
             order = barrier_order(it, geom.increase_order_iter)
             e = smooth_barrier_energy(tet_v, geom.energy, c1, c2, order)
     else:
@@ -78,11 +92,13 @@ def permute_surface_vertices(tet_v: torch.Tensor, surface_vid: torch.Tensor,
     return tet_v.index_add(0, surface_vid, noise.to(tet_v.device))
 
 
-def compute_vertex_normals(v_pos: torch.Tensor,
-                           t_pos_idx: torch.Tensor) -> torch.Tensor:
+def compute_vertex_normals(v_pos: torch.Tensor, t_pos_idx: torch.Tensor,
+                           up: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Area-weighted vertex normals (``compute_vertex_normals``,
     tet_geometry.py:80): face normals summed into their three vertices,
-    +z where the sum is degenerate, then normalized."""
+    +z where the sum is degenerate, then normalized. ``up``: the +z on
+    v_pos' device (``GeometryStatics.z_up``), else made here."""
     i0, i1, i2 = t_pos_idx[:, 0], t_pos_idx[:, 1], t_pos_idx[:, 2]
     v0, v1, v2 = v_pos[i0], v_pos[i1], v_pos[i2]
     fn = torch.linalg.cross(v1 - v0, v2 - v0)
@@ -90,7 +106,7 @@ def compute_vertex_normals(v_pos: torch.Tensor,
     v_nrm = (z.index_add(0, i0, fn) + z.index_add(0, i1, fn)
              + z.index_add(0, i2, fn))
     sq = torch.sum(v_nrm * v_nrm, dim=-1, keepdim=True)
-    with span("tssplat.sync.normals"):       # a host-to-device copy
+    if up is None:
         up = torch.tensor([0.0, 0.0, 1.0], dtype=v_pos.dtype,
                           device=v_pos.device)
     v_nrm = torch.where(sq > 1e-20, v_nrm, up)
@@ -234,6 +250,7 @@ class TetMeshGeometry:
             return torch.as_tensor(np.asarray(a), dtype=torch.int64,
                                    device=dev)
 
+        z_up, z_flip = normal_constants(dev)
         self.statics = GeometryStatics(
             surface_vid=i64(tetmesh.surface_vid),
             surface_fid=i64(tetmesh.surface_fid),
@@ -243,7 +260,8 @@ class TetMeshGeometry:
             energy=energy,
             smooth_coeff=float(sb.smooth_eng_coeff) * smooth_scale,
             barrier_coeff=float(sb.barrier_coeff),
-            increase_order_iter=int(sb.increase_order_iter))
+            increase_order_iter=int(sb.increase_order_iter),
+            z_up=z_up, z_flip=z_flip)
         self.tet_v = torch.as_tensor(tetmesh.vtx, dtype=torch.float32,
                                      device=dev)
 

@@ -7,7 +7,9 @@ Per view: face bounding box -> inclusive tile range (the same ±0.5-slack
 pixel-centre predicate as ``_tile_range``) -> one (tile, face) pair per
 overlapped tile -> one sort over all views -> per-tile start/count into
 the sorted face list. The expansion needs the pair total on the host (one
-device sync per call). Two layouts come out of it:
+device sync per call, the only one: each tile's count is a fixed-length
+count over the sorted pairs, ``tile_counts``). Two layouts come out of
+it:
 
   ``bin_faces``        K1's uncapped lists on 16x16 tiles: a face is listed
                        in every tile its box touches, so nothing is ever
@@ -204,15 +206,12 @@ def face_table(pos_clip: torch.Tensor, edge_nbrs: Optional[torch.Tensor]
     one = torch.ones_like(area)
     inv_area = torch.where(ok, 1.0 / torch.where(ok, area, one),
                            torch.zeros_like(area))
-    zero = torch.zeros_like(area)
-    if edge_nbrs is None:
-        nb = [zero, zero, zero]
-    else:
-        nb = edge_nbrs.to(pos_clip.dtype).unsqueeze(0).expand(B, F, 3) \
-            .unbind(-1)
-    cols = [ax, ay, bx, by, cx, cy, zr[..., 0], zr[..., 1], zr[..., 2],
-            inv_area, *nb, zero, zero, zero]
-    return torch.stack(cols, dim=-1).contiguous(), ok, valid
+    nb = torch.zeros_like(vx) if edge_nbrs is None else \
+        edge_nbrs.to(pos_clip.dtype).unsqueeze(0).expand(B, F, 3)
+    # (ax, ay, bx, by, cx, cy), z0..z2, inv_area, the neighbours, 0, 0, 0
+    cols = [torch.stack([vx, vy], dim=-1).reshape(B, F, 6), zr,
+            inv_area[..., None], nb, torch.zeros_like(vx)]
+    return torch.cat(cols, dim=-1), ok, valid
 
 
 def _tile_range(lo, hi, tile_px: int, n: int):
@@ -227,19 +226,33 @@ def _tile_range(lo, hi, tile_px: int, n: int):
     return t0, t1, empty
 
 
-def _sorted_pairs(table, live, resolution, tile_h, tile_w, row0=0,
-                  full_h=None):
-    """Expand every live face into one (tile, face) pair per tile its box
-    meets and sort them: (faces (L,) int64 sorted by (view, tile, id),
-    counts (B*ntiles,) int64, nty, ntx). With a viewport ``(row0,
-    full_h)`` the face's absolute pixel rows are shifted by row0 into the
-    slab's rows and clipped to its tiles (``bin_triangles``,
+class PairFront(NamedTuple):
+    """The pair expansion up to its pair total: every tensor has a shape
+    fixed by the views, faces and tiles, and nothing was read on the host
+    (the geometry step's CUDA graph runs it, ``step_graph.py``)."""
+    rec: torch.Tensor          # (4,B*F) int64 per face, for its pairs'
+    #                            codes (``_pair_codes``): a = the first
+    #                            pair's code - its index * F, the index of
+    #                            its first pair, its tiles across s, and
+    #                            (ntx - s) * F
+    npair: torch.Tensor        # (B*F,) int64 pairs of each face
+    total: torch.Tensor        # () int64, the pair total
+    F: int
+    nty: int
+    ntx: int
+
+
+def _pair_front(table, live, resolution, tile_h, tile_w, row0=0,
+                full_h=None) -> PairFront:
+    """Each live face's tile range and pair count (see ``PairFront``). A
+    pair's code is ``(view * ntiles + tile) * F + face``. With a viewport
+    ``(row0, full_h)`` the face's absolute pixel rows are shifted by row0
+    into the slab's rows and clipped to its tiles (``bin_triangles``,
     pallas_raster.py:453-455)."""
     H, W = resolution
     B, F, _ = table.shape
     dev = table.device
     nty, ntx = -(-H // tile_h), -(-W // tile_w)
-    ntiles = nty * ntx
     fh = H if full_h is None else full_h
     px = (table[..., 0:5:2] + 1.0) * 0.5 * W - 0.5              # (B,F,3)
     py = (table[..., 1:6:2] + 1.0) * 0.5 * fh - 0.5 - row0
@@ -248,21 +261,58 @@ def _sorted_pairs(table, live, resolution, tile_h, tile_w, row0=0,
     live = (live & ~ex & ~ey).to(torch.int64)
     spanx = (tx1 - tx0 + 1) * live
     npair = (spanx * (ty1 - ty0 + 1) * live).reshape(-1)        # (B*F,)
-    with span("tssplat.sync.binning"):
-        total = int(npair.sum())                                # host sync
+    first = torch.cumsum(npair, 0) - npair
+    view = torch.arange(B, device=dev)[:, None]
+    code0 = (((view * nty + ty0) * ntx + tx0) * F
+             + torch.arange(F, device=dev)).reshape(-1)
+    spanx = spanx.reshape(-1)
+    rec = torch.stack([code0 - first * F, first, spanx, (ntx - spanx) * F])
+    return PairFront(rec=rec, npair=npair, total=npair.sum(), F=F, nty=nty,
+                     ntx=ntx)
 
-    src = torch.repeat_interleave(torch.arange(B * F, device=dev), npair,
-                                  output_size=total)
-    local = torch.arange(total, device=dev) \
-        - (torch.cumsum(npair, 0) - npair)[src]
-    sx_src = spanx.reshape(-1)[src]
-    tile = (ty0.reshape(-1)[src] + local // sx_src) * ntx \
-        + tx0.reshape(-1)[src] + local % sx_src
-    view, face = src // F, src % F
-    code = torch.sort((view * ntiles + tile) * F + face).values
-    with span("tssplat.sync.bincount"):     # reads the codes' min and max
-        counts = torch.bincount(code // F, minlength=B * ntiles)
-    return code % F, counts, nty, ntx
+
+def _pair_codes(front: PairFront) -> torch.Tensor:
+    """The sorted pair codes ``(view * ntiles + tile) * F + face`` of the
+    faces of ``front``: one pair per tile each face's box meets. The
+    expansion's length is the pair total, read on the host: the binning's
+    one wait."""
+    with span("tssplat.sync.binning"):
+        total = int(front.total)                                # host sync
+    dev = front.npair.device
+    # each face's index, once for each of its pairs
+    src = torch.repeat_interleave(front.npair, output_size=total)
+    a, first, spanx, row_skip = front.rec.index_select(1, src).unbind(0)
+    # pair p of a face is its (p - first)-th: tile row (p - first) // s,
+    # column (p - first) % s of its range, each row ntx tiles on
+    p = torch.arange(total, device=dev)
+    row = (p - first).div_(spanx, rounding_mode="floor")
+    return torch.sort(a.add_(p, alpha=front.F).add_(row.mul_(row_skip))
+                      ).values
+
+
+def tile_counts(code: torch.Tensor, F: int, n: int) -> torch.Tensor:
+    """(n,) int64 pairs of each (view, tile) among the sorted pair codes
+    ``(view * ntiles + tile) * F + face``: each tile's pairs are a run of
+    the codes, its count the distance between the run's ends. A count of
+    fixed length: ``torch.bincount(code // F, minlength=n)`` would read the
+    codes' min and max on the host."""
+    ends = torch.searchsorted(code // F, torch.arange(n + 1,
+                                                      device=code.device))
+    return ends[1:] - ends[:-1]
+
+
+def _sorted_pairs(table, live, resolution, tile_h, tile_w, row0=0,
+                  full_h=None):
+    """Expand every live face into one (tile, face) pair per tile its box
+    meets and sort them: (faces (L,) int64 sorted by (view, tile, id),
+    counts (B*ntiles,) int64, nty, ntx). ``row0``, ``full_h`` as in
+    ``_pair_front``."""
+    front = _pair_front(table, live, resolution, tile_h, tile_w, row0,
+                        full_h)
+    code = _pair_codes(front)
+    n = table.shape[0] * front.nty * front.ntx
+    return code % front.F, tile_counts(code, front.F, n), front.nty, \
+        front.ntx
 
 
 @torch.no_grad()
@@ -287,40 +337,84 @@ def bin_faces(pos_clip: torch.Tensor, edge_nbrs: Optional[torch.Tensor],
                         nty=nty, ntx=ntx, row0=int(row0), full_h=full_h)
 
 
+class CappedFront(NamedTuple):
+    """``bin_faces_capped`` up to the host's read of its pair total."""
+    table: torch.Tensor        # (B,F,16) f32 per-face rows
+    pairs: PairFront
+    k: int
+    row0: int
+    full_h: Optional[int]
+
+
+@torch.no_grad()
+def capped_front(pos_clip: torch.Tensor, edge_nbrs: Optional[torch.Tensor],
+                 resolution: Tuple[int, int], k: int,
+                 viewport=None) -> CappedFront:
+    """The first half of ``bin_faces_capped``: the face table and each
+    face's tiles, with no host read. A face is binned when its three
+    vertices are valid (JAX's predicate: a face of zero area still takes a
+    slot; it covers no pixel)."""
+    H, W = resolution
+    if H % CAP_TILE_H or W % CAP_TILE_W:
+        raise ValueError(f"capped layout needs H % {CAP_TILE_H} == 0 and "
+                         f"W % {CAP_TILE_W} == 0, got {resolution}")
+    row0, full_h = viewport if viewport is not None else (0, None)
+    table, _, valid = face_table(pos_clip, edge_nbrs)
+    return CappedFront(table=table, pairs=_pair_front(
+        table, valid, resolution, CAP_TILE_H, CAP_TILE_W, row0, full_h),
+        k=int(k), row0=int(row0), full_h=full_h)
+
+
+@torch.no_grad()
+def capped_back(front: CappedFront,
+                out: Optional[CappedBins] = None) -> CappedBins:
+    """The second half of ``bin_faces_capped``: the pairs expanded (the
+    host reads their total) and sorted, each tile's count, and its k
+    smallest ids kept as its candidates (ascending, padded with F). Every
+    output has a fixed shape; ``out``, the bins of an earlier call (same
+    views, faces, resolution and k), takes them in its tensors. The table
+    is the front's."""
+    pairs, k, F = front.pairs, front.k, front.pairs.F
+    B = front.table.shape[0]
+    dev = front.table.device
+    ntile = B * pairs.nty * pairs.ntx
+    n = ntile * k
+    if out is None:
+        out = CappedBins(
+            table=front.table,
+            counts=torch.empty(ntile, dtype=torch.int32, device=dev),
+            cand=torch.empty(n + 1, dtype=torch.int32,
+                             device=dev)[:n].view(ntile, k),
+            n_drop=torch.empty(B, dtype=torch.int32, device=dev),
+            nty=pairs.nty, ntx=pairs.ntx, row0=front.row0,
+            full_h=front.full_h)
+    code = _pair_codes(pairs)
+    tile = code // F
+    ends = torch.searchsorted(tile, torch.arange(ntile + 1, device=dev))
+    counts = ends[1:] - ends[:-1]
+    rank = torch.arange(code.numel(), device=dev) \
+        - ends.index_select(0, tile)
+    # the candidates and one spare slot past them (their storage holds
+    # it), where every pair past its tile's k lands
+    slots = out.cand.as_strided((n + 1,), (1,))
+    slots.fill_(F)
+    slots.index_put_((torch.where(rank < k, rank.add(tile, alpha=k), n),),
+                     (code % F).to(torch.int32))
+    kept = torch.clamp(counts, max=k)
+    out.counts.copy_(kept)
+    out.n_drop.copy_((counts - kept).view(B, -1).sum(dim=1))
+    return out._replace(table=front.table)
+
+
 @torch.no_grad()
 def bin_faces_capped(pos_clip: torch.Tensor,
                      edge_nbrs: Optional[torch.Tensor],
                      resolution: Tuple[int, int], k: int,
                      viewport=None) -> CappedBins:
     """Bin the faces of every view into CAP_TILE_H x CAP_TILE_W tiles and
-    keep, per tile, the k smallest ids (see the module doc). A face is
-    binned when its three vertices are valid (JAX's predicate: a face of
-    zero area still takes a slot; it covers no pixel). ``viewport`` as in
-    ``bin_faces``; the tiles, and so the drops, are the slab's."""
+    keep, per tile, the k smallest ids (see the module doc): ``capped_front``
+    then ``capped_back``. ``viewport`` as in ``bin_faces``; the tiles, and
+    so the drops, are the slab's."""
     with span("tssplat.binning"):
-        H, W = resolution
-        if H % CAP_TILE_H or W % CAP_TILE_W:
-            raise ValueError(f"capped layout needs H % {CAP_TILE_H} == 0 and "
-                             f"W % {CAP_TILE_W} == 0, got {resolution}")
-        B = pos_clip.shape[0]
-        dev = pos_clip.device
-        row0, full_h = viewport if viewport is not None else (0, None)
-        table, _, valid = face_table(pos_clip, edge_nbrs)
-        F = table.shape[1]
-        faces, counts, nty, ntx = _sorted_pairs(table, valid, resolution,
-                                                CAP_TILE_H, CAP_TILE_W, row0,
-                                                full_h)
-        starts = torch.cumsum(counts, 0) - counts
-        kept = torch.clamp(counts, max=k)
-        n_drop = (counts - kept).view(B, nty * ntx).sum(dim=1)
-        j = torch.arange(k, device=dev)
-        if faces.numel():
-            idx = torch.clamp(starts[:, None] + j[None], max=faces.numel() - 1)
-            cand = torch.where(j[None] < kept[:, None], faces[idx], F)
-        else:
-            cand = torch.full((B * nty * ntx, k), F, dtype=torch.int64,
-                              device=dev)
-        return CappedBins(table=table, counts=kept.to(torch.int32),
-                          cand=cand.to(torch.int32).contiguous(),
-                          n_drop=n_drop.to(torch.int32), nty=nty, ntx=ntx,
-                          row0=int(row0), full_h=full_h)
+        return capped_back(capped_front(pos_clip, edge_nbrs, resolution, k,
+                                        viewport))

@@ -138,7 +138,7 @@ class _SmoothBarrier(torch.autograd.Function):
     coefficients and operator tables are constants of the train step)."""
 
     @staticmethod
-    def forward(ctx, x, c1: float, c2: float, order: int, ops: EnergyOps):
+    def forward(ctx, x, c1, c2, order: int, ops: EnergyOps):
         F9 = _deformation_gradients9(x, ops.tets, ops.dX_inv)
         UF9 = _unweighted_lap9(F9, ops.nbrs, ops.nbr_mask, ops.degree)
         WUF = ops.row_w[:, None] * UF9 if ops.row_w is not None else UF9
@@ -185,10 +185,14 @@ class _SmoothBarrier(torch.autograd.Function):
         return g * gx, None, None, None, None
 
 
-def smooth_barrier_energy(x: torch.Tensor, ops: EnergyOps, c1: float,
-                          c2: float, order: int) -> torch.Tensor:
-    """Total regularization energy (0-dim tensor). ``order`` is 2 or 4."""
-    return _SmoothBarrier.apply(x, float(c1), float(c2), int(order), ops)
+def smooth_barrier_energy(x: torch.Tensor, ops: EnergyOps, c1, c2,
+                          order: int) -> torch.Tensor:
+    """Total regularization energy (0-dim tensor). ``order`` is 2 or 4.
+    ``c1`` and ``c2`` are floats, or float32 0-dim tensors on x's device
+    (the same products: a float of the schedule is a float32 value)."""
+    def coeff(c):
+        return c if torch.is_tensor(c) else float(c)
+    return _SmoothBarrier.apply(x, coeff(c1), coeff(c2), int(order), ops)
 
 
 def deformation_gradients(x: torch.Tensor, tets: torch.Tensor,

@@ -34,7 +34,9 @@ spatial.py:133-143 does.
 
 Visibility (binning + K1, K2a or K2b) runs without gradients, and can be
 run beforehand and handed in as ``vis`` (the view-chunked step keeps it
-out of the recomputed part). Which
+out of the recomputed part); its binning alone, ``visibility_bins``, can be
+run beforehand and handed in as ``bins`` (the geometry step bins in front
+of its CUDA graph, which replays the visibility kernel). Which
 binning: the capped 8x128 layout (K2a without rows, K2b with) in exactly
 the scenes where the JAX package takes it (``binning.uses_capped_layout``),
 the uncapped 16x16 lists of K1 everywhere else. The winner rows carry their
@@ -62,8 +64,8 @@ from torch.nn.functional import pad as F_pad
 
 from ..utils.profiling import span
 from . import raster_kernels as rk
-from .binning import (bin_faces, bin_faces_capped, capacity,
-                      uses_capped_layout)
+from .binning import (CappedBins, CappedFront, bin_faces, capacity,
+                      capped_back, capped_front, uses_capped_layout)
 from .screen import AREA_EPS, W_EPS, edge, ndc_center, pixel_centers, screen
 
 _INF = float("inf")
@@ -165,24 +167,63 @@ def _capacity_and_viewport(k, F, resolution, viewport):
     return capacity(k, F, (full_h, W)), (int(row0), int(full_h))
 
 
+def visibility_front(pos_clip: torch.Tensor,
+                     edge_nbrs: Optional[torch.Tensor],
+                     resolution: Tuple[int, int], k: Optional[int] = None,
+                     viewport=None) -> Optional[CappedFront]:
+    """The capped layout's ``capped_front`` of the visibility pass (no
+    gradient, no host read) where the JAX package caps (``k`` per tile,
+    default ``default_tile_capacity``), else None (K1's uncapped lists).
+    With ``edge_nbrs`` the table carries the winner rows' neighbours (K2b
+    or K1 with rows, table R = 14), without them it does not (K2a, R =
+    11). The layout is chosen on the (slab's) H x W."""
+    if not _capped(pos_clip, edge_nbrs, resolution):
+        return None
+    cap, vp = _capacity_and_viewport(k, pos_clip.shape[1] // 3, resolution,
+                                     viewport)
+    return capped_front(pos_clip.detach(), edge_nbrs, resolution, cap, vp)
+
+
+def _capped(pos_clip, edge_nbrs, resolution) -> bool:
+    """Whether the visibility pass of these views takes the capped layout
+    (``uses_capped_layout`` with the table's width)."""
+    return uses_capped_layout(pos_clip.shape[1] // 3,
+                              11 if edge_nbrs is None else 14,
+                              pos_clip.shape[0], *resolution)
+
+
+def visibility_bins(pos_clip: torch.Tensor,
+                    edge_nbrs: Optional[torch.Tensor],
+                    resolution: Tuple[int, int], k: Optional[int] = None,
+                    viewport=None):
+    """The binning of the visibility pass, without gradient: the capped
+    layout's ``CappedBins`` (``visibility_front``, then ``capped_back``)
+    where the JAX package caps, else K1's ``FaceBins``."""
+    if not _capped(pos_clip, edge_nbrs, resolution):
+        _, vp = _capacity_and_viewport(k, pos_clip.shape[1] // 3,
+                                       resolution, viewport)
+        return bin_faces(pos_clip.detach(), edge_nbrs, resolution, vp)
+    with torch.no_grad(), span("tssplat.binning"):
+        return capped_back(visibility_front(pos_clip, edge_nbrs, resolution,
+                                            k, viewport))
+
+
 def silhouette_visibility(pos_clip: torch.Tensor, edge_nbrs: torch.Tensor,
                           resolution: Tuple[int, int],
-                          k: Optional[int] = None, viewport=None):
-    """Silhouette visibility without gradient: binning + K2b over the
-    capped layout where the JAX package caps (``k`` per tile, default
-    ``default_tile_capacity``), else K1. Returns (ids, z, the kernel's
-    winner rows g6, gaux, n_drop), which ``rasterize_silhouette_with_rows``
-    takes as ``vis``. The layout is chosen on the (slab's) H x W."""
-    B, F = pos_clip.shape[0], edge_nbrs.shape[0]
-    H, W = resolution
-    cap, vp = _capacity_and_viewport(k, F, resolution, viewport)
-    pos = pos_clip.detach()
+                          k: Optional[int] = None, viewport=None,
+                          bins=None):
+    """Silhouette visibility without gradient: ``visibility_bins`` (or its
+    output ``bins`` made beforehand, with ``edge_nbrs``), then K2b over
+    the capped layout, else K1. Returns (ids, z, the kernel's winner rows
+    g6, gaux, n_drop), which ``rasterize_silhouette_with_rows`` takes as
+    ``vis``."""
     with torch.no_grad(), span("tssplat.visibility"):
-        if uses_capped_layout(F, 14, B, H, W):
-            bins = bin_faces_capped(pos, edge_nbrs, resolution, cap, vp)
+        if bins is None:
+            bins = visibility_bins(pos_clip, edge_nbrs, resolution, k,
+                                   viewport)
+        if isinstance(bins, CappedBins):
             ids, z, g6k, gaux = rk.visibility_capped(bins, resolution)
         else:
-            bins = bin_faces(pos, edge_nbrs, resolution, vp)
             ids, z, g6k, gaux = rk.visibility(bins, resolution)
     return ids, z, g6k, gaux, bins.n_drop
 
@@ -191,13 +232,15 @@ def rasterize_silhouette_with_rows(pos_clip: torch.Tensor,
                                    edge_nbrs: torch.Tensor,
                                    resolution: Tuple[int, int],
                                    k: Optional[int] = None, vis=None,
-                                   viewport=None):
+                                   viewport=None, bins=None):
     """Silhouette visibility + the winner's differentiable AA rows
     (``rasterize_silhouette_with_rows``, rasterize.py:794, kernel path):
-    ``silhouette_visibility``, or its outputs ``vis`` computed beforehand,
-    and the rows' gradient path. Returns (ids, z, g6, gaux, n_drop)."""
+    ``silhouette_visibility`` (on ``bins`` where given), or its outputs
+    ``vis`` computed beforehand, and the rows' gradient path. Returns
+    (ids, z, g6, gaux, n_drop)."""
     ids, z, g6k, gaux, n_drop = vis if vis is not None else \
-        silhouette_visibility(pos_clip, edge_nbrs, resolution, k, viewport)
+        silhouette_visibility(pos_clip, edge_nbrs, resolution, k, viewport,
+                              bins)
     g6 = winner_screen_rows(screen_xy_table(pos_clip, edge_nbrs.shape[0]),
                             ids, g6k)
     return ids, z, g6, gaux, n_drop
@@ -248,33 +291,29 @@ def _shade_rast(pos_clip: torch.Tensor, ids: torch.Tensor,
 
 
 def visibility_ids(pos_clip: torch.Tensor, resolution: Tuple[int, int],
-                   k: Optional[int] = None, viewport=None):
-    """Visibility without winner rows and without gradient: binning + K2a
-    over the capped layout where the JAX package caps (table R = 11), else
-    K1 without rows. Returns (ids, n_drop), which ``rasterize`` takes as
-    ``vis``."""
-    B, F = pos_clip.shape[0], pos_clip.shape[1] // 3
-    H, W = resolution
-    cap, vp = _capacity_and_viewport(k, F, resolution, viewport)
-    pos = pos_clip.detach()
+                   k: Optional[int] = None, viewport=None, bins=None):
+    """Visibility without winner rows and without gradient:
+    ``visibility_bins`` without neighbours (or its output ``bins`` made
+    beforehand), then K2a over the capped layout, else K1 without rows.
+    Returns (ids, n_drop), which ``rasterize`` takes as ``vis``."""
     with torch.no_grad(), span("tssplat.visibility"):
-        if uses_capped_layout(F, 11, B, H, W):
-            bins = bin_faces_capped(pos, None, resolution, cap, vp)
+        if bins is None:
+            bins = visibility_bins(pos_clip, None, resolution, k, viewport)
+        if isinstance(bins, CappedBins):
             ids, _ = rk.visibility_capped_ids(bins, resolution)
         else:
-            bins = bin_faces(pos, None, resolution, vp)
             ids, _ = rk.visibility(bins, resolution, emit_g=False)
     return ids, bins.n_drop
 
 
 def rasterize(pos_clip: torch.Tensor, resolution: Tuple[int, int],
-              k: Optional[int] = None, vis=None, viewport=None):
+              k: Optional[int] = None, vis=None, viewport=None, bins=None):
     """Full rasterization (``rasterize``, rasterize.py:719): visibility
-    (``visibility_ids``, or its outputs ``vis`` computed beforehand), then
-    the differentiable shading of the winners. Returns (rast (B,H,W,4) =
-    (u, v, z/w, id+1), n_drop (B,))."""
+    (``visibility_ids``, on ``bins`` where given, or its outputs ``vis``
+    computed beforehand), then the differentiable shading of the winners.
+    Returns (rast (B,H,W,4) = (u, v, z/w, id+1), n_drop (B,))."""
     ids, n_drop = vis if vis is not None else \
-        visibility_ids(pos_clip, resolution, k, viewport)
+        visibility_ids(pos_clip, resolution, k, viewport, bins)
     return _shade_rast(pos_clip, ids, viewport), n_drop
 
 

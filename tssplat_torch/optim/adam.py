@@ -21,7 +21,6 @@ from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
-from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -53,8 +52,22 @@ def adam(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
          b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """(init_fn, update_fn) for Adam on a tensor or a dict of them."""
 
+    made = {}
+
+    def constants(dev):
+        """(b1, b2, a constant learning rate) as tensors on ``dev``, made
+        at its first use."""
+        if dev not in made:
+            made[dev] = (torch.tensor(b1, device=dev),
+                         torch.tensor(b2, device=dev),
+                         torch.tensor(float(learning_rate)
+                                      if not callable(learning_rate) else 0.0,
+                                      device=dev))
+        return made[dev]
+
     def init_fn(params) -> AdamState:
         dev = tree_leaves(params)[0].device
+        constants(dev)
         return AdamState(count=torch.zeros((), dtype=torch.int32, device=dev),
                          mu=tree_map(torch.zeros_like, params),
                          nu=tree_map(torch.zeros_like, params))
@@ -64,14 +77,12 @@ def adam(learning_rate: Union[float, Callable[[torch.Tensor], torch.Tensor]],
         mu = tree_map(lambda m, g: (1.0 - b1) * g + b1 * m, state.mu, grads)
         nu = tree_map(lambda v, g: (1.0 - b2) * (g * g) + b2 * v, state.nu,
                       grads)
+        b1_t, b2_t, lr0 = constants(dev)
         count = state.count + 1
         n = count.to(torch.float32)
-        # each host-to-device copy of a constant waits for the device
-        with span("tssplat.sync.optim"):
-            c1 = 1.0 - torch.pow(torch.tensor(b1, device=dev), n)
-            c2 = 1.0 - torch.pow(torch.tensor(b2, device=dev), n)
-        lr = learning_rate(state.count) if callable(learning_rate) \
-            else torch.tensor(learning_rate, device=dev)
+        c1 = 1.0 - torch.pow(b1_t, n)
+        c2 = 1.0 - torch.pow(b2_t, n)
+        lr = learning_rate(state.count) if callable(learning_rate) else lr0
         updates = tree_map(
             lambda m, v: -lr * ((m / c1) / (torch.sqrt(v / c2) + eps)),
             mu, nu)

@@ -17,8 +17,10 @@ utils/optimizer.py:4-89).
 Functional, optax-style: ``update_fn(grads, state) -> (updates, state)``
 with updates to add to the parameters: one tensor, or a dict of them whose
 leaves are visited in ``jax.tree_util`` order (keys sorted). Every scalar
-stays a tensor on the parameter's device, so a step never waits for the
-host.
+stays a tensor on the parameter's device, and the constants (the moments'
+bases, the grad-limit tables) are made there once, when ``init_fn`` builds
+the state: an update copies nothing from the host and never waits for it,
+so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from typing import Any, Callable, NamedTuple, Sequence, Union
 
 import torch
 
-from ..utils.profiling import span
 from ..utils.tree import tree_leaves, tree_map
 
 
@@ -71,9 +72,30 @@ def adam_uniform(learning_rate: ScheduleOrFloat = 0.1,
     iters = tuple(int(i) for i in grad_limit_iters)
     if grad_limit and len(values) < len(iters) + 1:
         values = values + (values[-1],) * (len(iters) + 1 - len(values))
+    made = {}
+
+    def constants(dev):
+        """(b1, b2, the cap values, the cap iterations, a constant
+        learning rate) as tensors on ``dev``, made at its first use."""
+        if dev not in made:
+            made[dev] = (torch.tensor(b1, device=dev),
+                         torch.tensor(b2, device=dev),
+                         torch.tensor(values, device=dev),
+                         torch.tensor(iters, dtype=torch.int32, device=dev),
+                         torch.tensor(float(learning_rate)
+                                      if not callable(learning_rate) else 0.0,
+                                      device=dev))
+        return made[dev]
+
+    def pick(table, ptr):
+        """table[min(ptr, len - 1)] as a 0-dim tensor, read on the device
+        (indexing by a 0-dim tensor would read ptr on the host)."""
+        i = torch.clamp_max(ptr, table.shape[0] - 1).reshape(1)
+        return table.index_select(0, i).reshape(())
 
     def init_fn(params) -> AdamUniformState:
         dev = tree_leaves(params)[0].device
+        constants(dev)
 
         def i32():
             return torch.zeros((), dtype=torch.int32, device=dev)
@@ -85,33 +107,24 @@ def adam_uniform(learning_rate: ScheduleOrFloat = 0.1,
     def update_fn(grads, state: AdamUniformState):
         leaves = tree_leaves(grads)
         dev = leaves[0].device
+        b1_t, b2_t, vals, its, lr0 = constants(dev)
         step = state.count + 1
         stepf = step.to(torch.float32)
-        # each host-to-device copy of a constant waits for the device
-        with span("tssplat.sync.optim"):
-            b1c = 1.0 - torch.pow(torch.tensor(b1, device=dev), stepf)
-            b2c = 1.0 - torch.pow(torch.tensor(b2, device=dev), stepf)
+        b1c = 1.0 - torch.pow(b1_t, stepf)
+        b2c = 1.0 - torch.pow(b2_t, stepf)
         g1 = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state.g1, grads)
         g2 = tree_map(lambda v, g: b2 * v + (1.0 - b2) * g * g, state.g2,
                       grads)
-        lr = learning_rate(state.count) if callable(learning_rate) \
-            else torch.tensor(learning_rate, device=dev)
+        lr = learning_rate(state.count) if callable(learning_rate) else lr0
 
         # the cap is read, and the pointer advanced, once for all leaves,
         # from the counter before this step
         limit_ptr = state.limit_ptr
         cap = None
         if grad_limit:
-            # indexing by a 0-dim tensor reads it on the host too
-            with span("tssplat.sync.optim"):
-                vals = torch.tensor(values, device=dev)
-                cap = vals[torch.clamp_max(state.limit_ptr,
-                                           len(values) - 1)]
+            cap = pick(vals, state.limit_ptr)
             if iters:
-                with span("tssplat.sync.optim"):
-                    its = torch.tensor(iters, dtype=torch.int32, device=dev)
-                    reached = state.cc >= its[torch.clamp_max(
-                        state.limit_ptr, len(iters) - 1)]
+                reached = state.cc >= pick(its, state.limit_ptr)
                 advance = (state.limit_ptr < len(iters)) & reached
                 limit_ptr = state.limit_ptr + advance.to(torch.int32)
 

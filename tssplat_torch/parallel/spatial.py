@@ -130,10 +130,9 @@ def spatial_pixel_sums(tet_v: torch.Tensor, statics: GeometryStatics,
                                - batch["d"][..., -1]) * a_gt) ** 2)
     if fit_normal:
         vn = compute_vertex_normals(tet_v[statics.surface_vid],
-                                    statics.surface_fid)
+                                    statics.surface_fid, up=statics.z_up)
         if normal_flip_z:          # Wonder3D/GSO convention (spatial.py:106)
-            vn = vn * torch.tensor([1.0, 1.0, -1.0], dtype=vn.dtype,
-                                   device=dev)
+            vn = vn * statics.z_flip
         nr = interpolate(vn[statics.surface_fid.reshape(-1)], rast)
         normal_se = torch.sum(((nr[:, HALO:HALO + H_loc]
                                 - batch["n"][..., :3]) * a_gt[..., None])

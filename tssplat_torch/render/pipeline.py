@@ -32,7 +32,8 @@ from ..geometry.tet_geometry import (GeometryStatics, compute_vertex_normals,
 from ..ops.rasterize import (antialias, antialias_color,
                              antialias_silhouette, interpolate, rasterize,
                              rasterize_silhouette_with_rows,
-                             silhouette_visibility, visibility_ids)
+                             silhouette_visibility, visibility_bins,
+                             visibility_front, visibility_ids)
 from ..ops.transform import transform_pos
 from ..utils.profiling import span
 
@@ -46,6 +47,38 @@ class RenderOutput(NamedTuple):
     # capped layout's per-tile capacity (0 on K1's uncapped lists);
     # non-zero means a silhouette may be wrong
     n_drop: Optional[torch.Tensor] = None
+
+
+def render_bins(tet_v: torch.Tensor, geom: GeometryStatics,
+                mvp: torch.Tensor, resolution: int, *, shaded: bool,
+                is_ortho: bool = False, tile_k: Optional[int] = None):
+    """The binning of ``render_visibility`` alone (``visibility_bins`` of
+    the views' clip positions, with the edge neighbours for the silhouette,
+    without them when ``shaded``): the capped layout's ``CappedBins``,
+    else K1's ``FaceBins``. ``render_views(..., bins=...)`` takes it and
+    runs the visibility kernel on it."""
+    with torch.no_grad(), span("tssplat.visibility"):
+        return visibility_bins(*_bin_args(tet_v, geom, mvp, resolution,
+                                          shaded, is_ortho), tile_k)
+
+
+def render_front(tet_v: torch.Tensor, geom: GeometryStatics,
+                 mvp: torch.Tensor, resolution: int, *, shaded: bool,
+                 is_ortho: bool = False, tile_k: Optional[int] = None):
+    """The first half of ``render_bins``, ``visibility_front``: no host
+    read, every shape fixed (None for K1's lists); ``binning.capped_back``
+    completes it."""
+    with torch.no_grad():
+        return visibility_front(*_bin_args(tet_v, geom, mvp, resolution,
+                                           shaded, is_ortho), tile_k)
+
+
+def _bin_args(tet_v, geom, mvp, resolution, shaded, is_ortho):
+    """(clip positions, edge neighbours or None, (H, W)) of the binning."""
+    pos_clip = transform_pos(mvp, tet_v.detach()[geom.corner_vid],
+                             is_ortho=is_ortho)
+    res = (int(resolution), int(resolution))
+    return pos_clip, None if shaded else geom.edge_nbrs, res
 
 
 def render_visibility(tet_v: torch.Tensor, geom: GeometryStatics,
@@ -114,7 +147,8 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
                  campos: Optional[torch.Tensor] = None,
                  fit_normal: bool = False, fit_depth: bool = False,
                  is_ortho: bool = False, normal_flip_z: bool = True,
-                 tile_k: Optional[int] = None, vis=None) -> RenderOutput:
+                 tile_k: Optional[int] = None, vis=None, bins=None,
+                 energy_coeffs=None) -> RenderOutput:
     """Render a batch of views mvp (B,4,4) of the current geometry: the
     antialiased silhouettes (``only_alpha``) or, with ``material_fn`` /
     ``material_params`` and ``background`` (B,H,W,3), the antialiased
@@ -122,8 +156,9 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
     and depth images (depth needs campos (B,3)). ``tile_k`` is the capped
     layout's per-tile capacity (see validated_tile_k); ``vis`` the output
     of ``render_visibility`` for the same arguments, if it was run
-    beforehand."""
-    fwd = geometry_forward(tet_v, geom, it)
+    beforehand, or ``bins`` that of ``render_bins``; ``energy_coeffs`` as
+    ``geometry_forward``'s ``coeffs``."""
+    fwd = geometry_forward(tet_v, geom, it, coeffs=energy_coeffs)
     # corner layout: one gather expands tet_v to per-(face, corner) rows,
     # so every per-face access downstream is a reshape
     v_corner = tet_v[geom.corner_vid]                     # (3F,3)
@@ -131,12 +166,12 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
     res = (int(resolution), int(resolution))
     if only_alpha and not (fit_normal or fit_depth):
         ids, z, g6, gaux, n_drop = rasterize_silhouette_with_rows(
-            pos_clip, geom.edge_nbrs, res, k=tile_k, vis=vis)
+            pos_clip, geom.edge_nbrs, res, k=tile_k, vis=vis, bins=bins)
         alpha = antialias_silhouette(ids, z, g6, gaux)[..., None]
         return RenderOutput(shaded=alpha, geo_regularization=fwd.energy,
                             n_drop=n_drop)
 
-    rast, n_drop = rasterize(pos_clip, res, k=tile_k, vis=vis)
+    rast, n_drop = rasterize(pos_clip, res, k=tile_k, vis=vis, bins=bins)
     if only_alpha:
         shaded = antialias(rast, pos_clip, geom.edge_nbrs)[..., None]
     else:
@@ -153,12 +188,9 @@ def render_views(tet_v: torch.Tensor, geom: GeometryStatics,
     if fit_normal:
         with span("tssplat.normals"):
             tri = fwd.t_pos_idx
-            v_nrm = compute_vertex_normals(fwd.v_pos, tri)
+            v_nrm = compute_vertex_normals(fwd.v_pos, tri, up=geom.z_up)
             if normal_flip_z:  # Wonder3D/GSO convention (reference :141-144)
-                with span("tssplat.sync.normals"):   # a host-to-device copy
-                    flip = torch.tensor([1.0, 1.0, -1.0], dtype=v_nrm.dtype,
-                                        device=v_nrm.device)
-                v_nrm = v_nrm * flip
+                v_nrm = v_nrm * geom.z_flip
             normal = interpolate(v_nrm[tri.reshape(-1)], rast)
     if fit_depth:
         if campos is None:

@@ -73,8 +73,9 @@ from .geometry.tet_geometry import (GeometryStatics,
                                     LinearInterpolateScheduler,
                                     geometry_forward,
                                     permute_surface_vertices)
-from .ops.binning import (CAP_TILE_H, CAP_TILE_W, default_tile_capacity,
-                          validate_tile_capacity)
+from .ops.binning import (CAP_TILE_H, CAP_TILE_W, capped_back,
+                          default_tile_capacity, validate_tile_capacity)
+from .ops.energy import barrier_order, energy_coeff_schedule
 from .ops.rasterize import interpolate, rasterize
 from .ops.transform import transform_pos
 from .optim import (adam, adam_uniform, apply_updates, cosine_annealing_lr,
@@ -82,7 +83,9 @@ from .optim import (adam, adam_uniform, apply_updates, cosine_annealing_lr,
 from .parallel.mesh import BROADCAST, MEAN, SUM, shard_batch, sync_step
 from .parallel.spatial import (shard_spatial_train_batch, slab_rows,
                                spatial_geometry_loss)
-from .render.pipeline import render_views, render_visibility
+from .render.pipeline import (render_bins, render_front, render_views,
+                              render_visibility)
+from .step_graph import GraphedStep
 from .utils import debug
 from .utils.checkpoint import (latest_checkpoint_step, restore_checkpoint,
                                save_checkpoint)
@@ -117,11 +120,13 @@ def _img_loss(statics: GeometryStatics, tet_v: torch.Tensor, batch: dict,
               it: int, resolution: int, is_ortho: bool, fit_depth: bool,
               fit_normal: bool, normal_weight: float,
               tile_k: Optional[int], vis=None,
-              material_fn: Optional[Callable] = None, mat_params=None):
+              material_fn: Optional[Callable] = None, mat_params=None,
+              bins=None, energy_coeffs=None):
     """(img_loss, energy, n_drop) of the views of ``batch``: the MSE of the
     silhouette, or with ``material_fn`` the L1 of the colour against the
     target RGB (and the depth term's L1 instead of its MSE), as
-    train.py:131-165."""
+    train.py:131-165. ``vis``, ``bins`` and ``energy_coeffs`` as
+    ``render_views`` takes them."""
     texture = material_fn is not None
     out = render_views(tet_v, statics, batch["mvp"], it, resolution,
                        only_alpha=not texture, material_fn=material_fn,
@@ -129,7 +134,8 @@ def _img_loss(statics: GeometryStatics, tet_v: torch.Tensor, batch: dict,
                        background=batch.get("background"),
                        campos=batch.get("campos"), fit_depth=fit_depth,
                        fit_normal=fit_normal, is_ortho=is_ortho,
-                       tile_k=tile_k, vis=vis)
+                       tile_k=tile_k, vis=vis, bins=bins,
+                       energy_coeffs=energy_coeffs)
     img = batch["img"]
     if texture:
         img_loss = torch.mean(torch.abs(out.shaded[..., :3]
@@ -155,12 +161,14 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
                   is_ortho: bool = False, *, fit_depth: bool = False,
                   fit_normal: bool = False, normal_weight: float = 10.0,
                   tile_k: Optional[int] = None, view_chunk: int = 0,
-                  material_fn: Optional[Callable] = None, mat_params=None):
+                  material_fn: Optional[Callable] = None, mat_params=None,
+                  bins=None, energy_coeffs=None):
     """(loss, img_loss, reg, n_drop, gradient) of one batch: the gradient
     w.r.t. tet_v, or, with ``material_fn`` and ``mat_params`` (the texture
     stage: the batch's "background" composited under the colour, tet_v
     frozen, no energy), w.r.t. the material's parameters (a dict like
-    them).
+    them). ``bins`` (``render_bins`` of the batch) and ``energy_coeffs``
+    as ``render_views`` takes them, for the batch in one piece.
 
     With ``view_chunk`` dividing the B views (and smaller than B) the loss
     runs chunk by chunk, as JAX's scan over ``jax.checkpoint``ed chunks
@@ -211,8 +219,9 @@ def loss_and_grad(statics: GeometryStatics, tet_v: torch.Tensor,
         reg = geometry_forward(x, statics, it).energy
     else:
         with span("tssplat.render"):
-            img_loss, reg, n_drop = _img_loss(statics, x, batch, it, *opts,
-                                              **mat)
+            img_loss, reg, n_drop = _img_loss(
+                statics, x, batch, it, *opts, bins=bins,
+                energy_coeffs=energy_coeffs, **mat)
     loss = img_loss * 100.0 + reg
     with span("tssplat.backward"):
         grads = torch.autograd.grad(loss, wrt)
@@ -328,6 +337,25 @@ def build_texture_sample_cache(statics: GeometryStatics, tet_v: torch.Tensor,
     return {"positions": pad(pos_l), "gt": pad(gt_l), "count": count}
 
 
+def step_scalars(statics: GeometryStatics, it: int, device: DeviceLike,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The iteration's host values as one int32 (3,) tensor on ``device``:
+    the energy ramp's c1 and c2 (``energy_coeff_schedule``, their float32
+    bits) and ``it``. On CUDA the copy comes from pinned memory and does not
+    wait; ``out`` takes it in place."""
+    c1, c2 = energy_coeff_schedule(it, statics.smooth_coeff,
+                                   statics.barrier_coeff)
+    host = np.array([c1, c2, 0.0], np.float32).view(np.int32)
+    host[2] = it
+    src = torch.from_numpy(host)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        src = src.pin_memory()
+    if out is None:
+        return src.to(dev, non_blocking=True)
+    return out.copy_(src, non_blocking=True)
+
+
 def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                     resolution: int, is_ortho: bool = False,
                     fit_depth: bool = False, fit_normal: bool = False,
@@ -359,8 +387,14 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
     (``parallel/mesh.py``: MEAN, SUM or BROADCAST); the loss is then
     img_loss x 100 + reg of the combined values, alike on every rank.
     ``spatial`` = (rank, n_view, n_sp) takes the loss of the rank's row
-    slab (``parallel/spatial.py spatial_geometry_loss``)."""
+    slab (``parallel/spatial.py spatial_geometry_loss``).
+
+    The geometry step of a whole batch on one rank (no texture, ``sync``,
+    ``spatial`` or view chunks) bins its views first and then runs the
+    rest, which on a CUDA device a CUDA graph replays
+    (``step_graph.GraphedStep``, ``step.graphs``)."""
     texture = material_fn is not None
+    shaded = fit_depth or fit_normal
 
     def texture_grads(params, it, batch):
         x = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -388,8 +422,55 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
             grad, = torch.autograd.grad(loss, [x])
         return loss.detach(), il.detach(), rg.detach(), nd, grad
 
+    def update(state: TrainState, loss, img_loss, reg, n_drop, grads,
+               it_t: torch.Tensor):
+        """The optimizer's update and the best snapshot, taken after it;
+        ``it_t`` the iteration as an int32 0-dim tensor."""
+        with torch.no_grad(), span("tssplat.optim"):
+            updates, opt_state = update_fn(grads, state.opt_state)
+            params = apply_updates(state.params, updates)
+            better = loss < state.best_loss
+            new_state = TrainState(
+                params=params, opt_state=opt_state,
+                best_loss=torch.where(better, loss, state.best_loss),
+                best_iter=torch.where(better, it_t, state.best_iter),
+                best_params=tree_map(lambda c, b: torch.where(better, c, b),
+                                     params, state.best_params))
+        return new_state, (loss, img_loss, reg, n_drop)
+
+    def body(state: TrainState, batch: dict, bins, scal: torch.Tensor,
+             it: int):
+        """The geometry step after its binning, on ``bins`` and the host
+        values ``scal`` of ``step_scalars``."""
+        coeffs = scal.view(torch.float32)
+        loss, img_loss, reg, n_drop, grad = loss_and_grad(
+            statics, state.params, batch, it, resolution, is_ortho,
+            fit_depth=fit_depth, fit_normal=fit_normal,
+            normal_weight=normal_weight, tile_k=tile_k, bins=bins,
+            energy_coeffs=(coeffs[0], coeffs[1]))
+        return update(state, loss, img_loss, reg, n_drop, grad, scal[2])
+
+    def bins_fn(params, batch, front=False):
+        fn = render_front if front else render_bins
+        return fn(params, statics, batch["mvp"], resolution, shaded=shaded,
+                  is_ortho=is_ortho, tile_k=tile_k)
+
+    graphs = None
+    if not texture and sync is None and spatial is None:
+        graphs = GraphedStep(
+            bins_fn, lambda params, batch: bins_fn(params, batch, True),
+            capped_back,
+            lambda it, dev, out=None: step_scalars(statics, it, dev, out),
+            body, ("mvp", "img") + (("campos", "d") if fit_depth else ())
+            + (("n",) if fit_normal else ()),
+            lambda it: barrier_order(it, statics.increase_order_iter))
+
     def step(state: TrainState, batch: dict, it: int):
         with span("tssplat.step"):
+            B = batch["mvp"].shape[0] if "mvp" in batch else 0
+            if graphs is not None and not (view_chunk and B % view_chunk == 0
+                                           and B > view_chunk):
+                return graphs(state, batch, it)
             return _step(state, batch, it)
 
     def _step(state: TrainState, batch: dict, it: int):
@@ -413,20 +494,10 @@ def make_train_step(statics: GeometryStatics, update_fn: Callable, *,
                 tree_leaves(grads), img_loss, reg, n_drop, sync)
             grads = tree_unflatten(grads, leaves)
             loss = img_loss * 100.0 + reg
-        with torch.no_grad(), span("tssplat.optim"):
-            updates, opt_state = update_fn(grads, state.opt_state)
-            params = apply_updates(state.params, updates)
-            better = loss < state.best_loss
-            with span("tssplat.sync.optim"):
-                it_t = torch.tensor(it, dtype=torch.int32, device=loss.device)
-            new_state = TrainState(
-                params=params, opt_state=opt_state,
-                best_loss=torch.where(better, loss, state.best_loss),
-                best_iter=torch.where(better, it_t, state.best_iter),
-                best_params=tree_map(lambda c, b: torch.where(better, c, b),
-                                     params, state.best_params))
-        return new_state, (loss, img_loss, reg, n_drop)
+        it_t = step_scalars(statics, it, loss.device)[2]
+        return update(state, loss, img_loss, reg, n_drop, grads, it_t)
 
+    step.graphs = graphs
     return step
 
 

@@ -32,7 +32,9 @@ def span(name: str):
     span in a backward (a checkpointed chunk's recompute, a custom
     Function's backward) lands in the trace too. Names start with
     ``tssplat.``; ``tssplat.sync.<site>`` marks a statement that waits for
-    the device."""
+    the device; ``tssplat.graph`` a replay of the geometry step's CUDA
+    graph (``step_graph.py``: the layer spans inside it are not recorded,
+    no host code runs there) and ``tssplat.graph_capture`` its capture."""
     if torch.autograd._profiler_enabled():
         return record_function(name)
     return _NO_SPAN
