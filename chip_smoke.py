@@ -81,6 +81,16 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                gradient within 1e-5 of its sum of |terms|; each timed as
                in phase 3 with its plain version and its bound (bytes over
                3.35 TB/s). Alone: ``chip_smoke.hash_grid_alone(smi)``
+  6f. the exact texture loss's tail (``aa_l1_phase``): K10 and its
+               backward at the same cache (tools/tail_cases.py: a seeded
+               target, background and colours): the shaded image, the
+               sign bytes and d colours equal their plain versions, the
+               sum within 1e-6 of the plain chain's, d colours within 1e-6
+               of autograd's gradient of the plain chain; each direction
+               timed as in phase 3 with its plain version and its bound
+               (bytes over 3.35 TB/s), and the plain chain's forward with
+               autograd's backward, which the texture step ran before K10.
+               Alone: ``chip_smoke.aa_l1_alone(smi)``
   7. multi-sphere silhouette training — 3 + 20 steps, AdamUniform as
                configs/gso.yaml sets it (lr 0.2 cosine over 1500, caps
                0.01): K2b, K3, K4, K5 each launched once per step, no drops
@@ -133,9 +143,10 @@ Needs one CUDA device (it fails without one) and nvcc (CUDA_HOME, PATH or
                antialiased Lambertian colour as the target. (a) the exact
                path, 24 iterations: its line printed and no warning, the
                visibility kernel (K1 or K2a), K6 and K7 launched once per
-               view in the cache build and once in the UV bake, K8, K9
-               and K9's backward once inside each step and nothing else,
-               K9 again in each of the bake's 8 chunks,
+               view in the cache build and once in the UV bake, K8 once
+               per 8 views in the cache build, K9, K10 and their backwards
+               once inside each step and nothing else, K9 again in each
+               of the bake's 8 chunks,
                img_loss falling (the mean of the last four logged against
                the first four), final/material/{material.npz,
                texture_kd.png, mesh.obj, material.mtl} written and the
@@ -269,7 +280,7 @@ The launch counts are zeroed just before each main-path phase (4, 7, 8,
 Then one JSON line of per-kernel results (launches of K1, K3, K4, K5 from phase
 4, of K2b from 7, of K2a, K6, K7 and K8 from 8; K6-K8's times and bounds
 at 120 views from 6d, and at the Wonder3D cell's shape as ``w3d_6v``;
-K9's from 6e; ``launches_texture`` from phase 11 (a);
+K9's from 6e; K10's from 6f; ``launches_texture`` from phase 11 (a);
 ``launches_remesh``, an iteration of 12 (c) before and after the remesh;
 ``launches_image_to_3d``, each run of 14; ``launches_tetwild``, 15 (b);
 ``viewport_max_err``, ``viewport_ms`` and ``viewport_bound_ms`` of 13 (a)
@@ -801,6 +812,14 @@ def main():
                bnd)
 
     hash_grid_phase(smi, report_grid, g_geo, g_batch)
+
+    # ---- 6f. K10 at the exact texture cell's shape --------------------------
+    def report_tail(name, err, tol, ms, plain_ms, bnd):
+        report(name, "tssplat_torch/csrc/aa_l1.cu",
+               "none (XLA code in the JAX package)", err, tol, ms, plain_ms,
+               bnd)
+
+    aa_l1_phase(smi, report_tail, g_geo, g_batch)
     del g_geo, g_batch
     torch.cuda.empty_cache()
 
@@ -1107,6 +1126,80 @@ def hash_grid_alone(smi=""):
               flush=True)
 
     hash_grid_phase(smi, report, geo, batch)
+
+
+def aa_l1_phase(smi, report, geo, batch, res=RES):
+    """Phase 6f: K10 at the exact texture cell's shape: the exact cache of
+    the scene ``geo`` at the views of ``batch`` (gso.yaml's 120 of res²),
+    with a target, background and colours drawn from a seed
+    (tools/tail_cases.py). The shaded image, the sign bytes and d colours
+    equal their plain versions to the bit, the sum lies within 1e-6 of the
+    plain chain's and d colours within 1e-6 of autograd's gradient of the
+    plain chain (over its largest |value|); each direction timed as in
+    phase 3 beside its plain version and its bound (bytes over 3.35 TB/s:
+    forward fg, aa, bg, gt and the sign byte a pixel, the colours and the
+    weight rows; backward a point's pixel, sign byte, record and d colours
+    row, and the weight rows), then the plain chain with autograd's
+    backward as the texture step ran it before K10; the numbers handed to
+    ``report(name, err, tol, ms, plain_ms, bound)``."""
+    from tssplat_torch.ops import aa_l1 as al
+    from tssplat_torch.tools.tail_cases import check_tail, tail_inputs
+    from tssplat_torch.tools.timing import bound_ms, cuda_ms
+
+    t0 = time.perf_counter()
+    dev = batch["mvp"].device
+    cache, colors = tail_inputs(geo, batch, res, 26)
+    got = check_tail(cache, colors)
+    require(got["shaded_equal"] and got["codes_equal"] and got["grad_equal"],
+            f"6f: K10 differs from its plain versions {got}")
+    require(got["loss_rel"] <= 1e-6 and got["grad_rel"] <= 1e-6,
+            f"6f: K10 off the plain chain {got}")
+    n_fg, n_aa = int(colors.shape[0]), int(cache["aa_w"].shape[0])
+    P = int(cache["fg"].numel())
+    gs = torch.tensor(0.37, device=dev)
+    _, codes, _ = al.aa_l1(colors, cache)
+
+    def chain():
+        x = colors.detach().requires_grad_(True)
+        torch.autograd.grad(al.aa_l1_plain(x, cache)[0] * gs, [x])
+
+    def plain_fwd():
+        with torch.no_grad():
+            al.aa_l1_plain(colors, cache)
+
+    report("aa_l1", 0.0, 0.0, cuda_ms(lambda: al.aa_l1(colors, cache)),
+           cuda_ms(plain_fwd, reps=5, warm=1),
+           bound_ms(P * 33 + n_fg * 12 + n_aa * 16, 0))
+    report("aa_l1_backward", 0.0, 0.0,
+           cuda_ms(lambda: al.aa_l1_backward(gs, codes, cache)),
+           cuda_ms(lambda: al.aa_l1_backward_plain(gs, codes, cache),
+                   reps=5, warm=1),
+           bound_ms(n_fg * 25 + n_aa * 16, 0))
+    chain_ms = cuda_ms(chain, reps=5, warm=1)
+    print(f"[tail] {batch['mvp'].shape[0]} views of {res}²: {P} pixels, "
+          f"{n_fg} points, {n_aa} weight rows; K10 agrees with its plain "
+          f"versions (sum {got['loss_rel']:.3g} of the float32 chain's, "
+          f"{got['loss_rel64']:.3g} of its float64 sum; d colours "
+          f"{got['grad_rel']:.3g} of autograd's max); the plain chain with "
+          f"autograd's backward {chain_ms:.3f} ms; phase 6f "
+          f"{time.perf_counter() - t0:.1f} s; on {smi}", flush=True)
+    del cache, colors, codes
+    torch.cuda.empty_cache()
+
+
+def aa_l1_alone(smi=""):
+    """Phase 6f by itself (the 18-sphere scene at 120 views of 512², ~10 s
+    to mesh), its numbers printed."""
+    from tssplat_torch.tools.synthetic import multisphere_scene
+
+    geo, batch = multisphere_scene("cuda", 18, GSO_VIEWS, RES)
+
+    def report(name, err, tol, ms, plain_ms, bnd):
+        print(f"[tail] {name}: max_err={err:.3g} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bnd[0]:.4f} ({bnd[1]})",
+              flush=True)
+
+    aa_l1_phase(smi, report, geo, batch)
 
 
 def slab_phase(report_slab, bench_pos, bench_nbrs, ms_pos, ms_nbrs, k, res,
@@ -2289,7 +2382,7 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
     from tssplat_torch.geometry import TetMeshMultiSphereGeometry
     from tssplat_torch.materials import ExplicitMaterial
     from tssplat_torch.materials.exact_stage import (
-        build_texture_exact_cache, build_texture_exact_loss)
+        AA_VIEWS, build_texture_exact_cache, build_texture_exact_loss)
     from tssplat_torch.mesh.spheres import icosphere
     from tssplat_torch.ops import raster_kernels as rk
     from tssplat_torch.tools.synthetic import write_synthetic_dataset
@@ -2343,20 +2436,23 @@ def texture_phase(smi, tmp, run, geo_dir, views, device=None):
         require(_falls(logged), f"{label}: img_loss did not fall {logged}")
         return counts, out, text
 
-    # (a) the exact path: K9 (the encoding and its gradient) and K8 (the
-    # colour antialias's rows) in each step
+    # (a) the exact path: K9 (the encoding and its gradient) and K10 (the
+    # loss's image-space tail) in each step; K8 only in the cache
     k9 = {"hash_grid": 1, "hash_grid_backward": 1}
     counts, out, text = timed("tex_a_exact", 24, "exact texture fast path",
-                              {"winner_rows": 1, **k9})
+                              {"aa_l1": 1, "aa_l1_backward": 1, **k9})
     n_vis = sum(counts[k] for k in vis_kernels)
     require(n_vis == views + 1, f"(a): {n_vis} visibility launches, "
             f"expected {views} (the cache) + 1 (the UV bake)")
     # the cache and the bake shade their winners and interpolate the
-    # positions once a render; the bake evaluates the field at its 1024²
+    # positions once a render, and the cache takes the antialias rows once
+    # a group of AA_VIEWS views; the bake evaluates the field at its 1024²
     # texels in 8 chunks of 2^17 (render/pipeline.py
     # _apply_material_chunked)
-    want = dict(shade=views + 1, interp=views + 1, winner_rows=24,
-                hash_grid=24 + 8, hash_grid_backward=24)
+    want = dict(shade=views + 1, interp=views + 1,
+                winner_rows=-(-views // AA_VIEWS),
+                hash_grid=24 + 8, hash_grid_backward=24, aa_l1=24,
+                aa_l1_backward=24)
     require(all(counts[k] == want.get(k, 0) for k in counts
                 if k not in vis_kernels), f"(a): launches {counts}, "
             f"expected {want} besides the visibility")

@@ -457,6 +457,84 @@ def test_exact_texture_step_on_the_card_matches_cpu(tmp_path):
         assert float((a - b).abs().max()) <= tol, (i, scale)
 
 
+@pytest.mark.cuda
+def test_image_tail_kernels_match_plain_at_the_texture_cell_shape():
+    """K10 (ops/aa_l1.py) against its plain versions at the exact texture
+    cell's shape: the 18-sphere scene at 120 views of 512² (~1.27 M
+    foreground points), a seeded target, background and colours
+    (tools/tail_cases.py). The shaded image, the sign bytes and d colours
+    equal the plain versions' (the same operations in the same order,
+    built without FMA contraction); the sum within a relative 1e-6 of the
+    plain chain's float32 sum (only the order of the sum differs), d
+    colours within 1e-6 of autograd's gradient of the plain chain over its
+    largest |value|; each kernel launched once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tssplat_torch.tools.tail_cases import check_tail, tail_inputs
+
+    geo, batch = multisphere_scene("cuda", 18, 120, 512)
+    cache, colors = tail_inputs(geo, batch, 512, 25)
+    assert colors.shape[0] > 1_000_000
+    before = rk.launch_counts()
+    got = check_tail(cache, colors)
+    torch.cuda.synchronize()
+    after = rk.launch_counts()
+    assert after["aa_l1"] == before["aa_l1"] + 1
+    assert after["aa_l1_backward"] == before["aa_l1_backward"] + 1
+    assert got["shaded_equal"] and got["codes_equal"] and got["grad_equal"]
+    assert got["loss_rel"] <= 1e-6, got
+    assert got["grad_rel"] <= 1e-6, got
+
+
+@pytest.mark.cuda
+def test_texture_step_launches_the_tail_once_and_no_winner_rows():
+    """Exact texture steps on the card (make_train_step with the exact
+    loss) of tet_sphere(0.12) at 2 views of 128², a seeded target and
+    background: after the first, each step launches K9's pair and K10's
+    pair once each and no other kernel, K8 among them (the cache holds
+    the antialias's weights); the losses finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tssplat_torch.geometry import TetMeshGeometry
+    from tssplat_torch.materials import ExplicitMaterial
+    from tssplat_torch.materials.exact_stage import (
+        build_texture_exact_cache, build_texture_exact_loss)
+    from tssplat_torch.optim import adam, cosine_decay_schedule
+    from tssplat_torch.train import init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    geo = TetMeshGeometry(dict(use_smooth_barrier=False),
+                          tetmesh=TetMesh(*tet_sphere(0.12, radius=0.3)),
+                          device=dev)
+    mat = ExplicitMaterial(None, device=dev)
+    mvp, _, _ = fibonacci_views(2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    data = {"mvp": torch.tensor(mvp, dtype=torch.float32, device=dev),
+            "img": torch.rand((2, 128, 128, 4), generator=gen, device=dev),
+            "background": torch.rand((2, 128, 128, 3), generator=gen,
+                                     device=dev)}
+    cache = build_texture_exact_cache(geo, mat, data, 128)
+    init_fn, update_fn = adam(cosine_decay_schedule(1e-2, 100))
+    step = make_train_step(
+        geo.statics, update_fn, resolution=128, material_fn=mat.apply_fn,
+        tet_v_frozen=geo.tet_v,
+        texture_exact_loss=build_texture_exact_loss(mat, geo.statics,
+                                                    cache))
+    state = init_train_state(mat.params, init_fn)
+    for it in range(3):
+        torch.cuda.synchronize()
+        before = rk.launch_counts()
+        state, out = step(state, {}, it)
+        torch.cuda.synchronize()
+        after = rk.launch_counts()
+        assert bool(torch.isfinite(out[0]))
+        if it:
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == {
+                "hash_grid": 1, "hash_grid_backward": 1, "aa_l1": 1,
+                "aa_l1_backward": 1}
+
+
 def _dumbbell_and_dent():
     import numpy as np
     from tssplat_torch.mesh.spheres import icosphere

@@ -159,15 +159,19 @@ CASES = {
                                 "tssplat.sync.row_gather": 11}, SHADED),
     "ortho_normal_one_batch": ({**ONE_BATCH, **NORMALS,
                                 "tssplat.sync.row_gather": 8}, SHADED),
+    # the exact path: the antialias's rows and weights are the cache's, so
+    # its tail (K10 or its plain chain) waits on no row gather
     "texture": ({"tssplat.step": 1, "tssplat.encoding": 1,
                  "tssplat.mlp": 1, "tssplat.antialias_color": 1,
                  "tssplat.backward": 1, "tssplat.optim": 1,
-                 "tssplat.render": 0, "tssplat.visibility": 0},
+                 "tssplat.render": 0, "tssplat.visibility": 0,
+                 "tssplat.sync.row_gather": 0},
                 [("tssplat.encoding", "tssplat.step"),
                  ("tssplat.mlp", "tssplat.step"),
                  ("tssplat.antialias_color", "tssplat.step"),
-                 ("tssplat.sync.row_gather", "tssplat.antialias_color"),
-                 ("tssplat.sync.encoding", "tssplat.encoding")]),
+                 ("tssplat.sync.encoding", "tssplat.encoding"),
+                 ("tssplat.backward", "tssplat.step"),
+                 ("tssplat.optim", "tssplat.step")]),
     # the cached sampled path: no visibility and no colour antialias
     "texture_sampled": ({"tssplat.step": 1, "tssplat.encoding": 1,
                          "tssplat.mlp": 1, "tssplat.antialias_color": 0,

@@ -39,6 +39,7 @@ SOURCES = {
     "interp": "interp.cu",
     "winner_rows": "winner_rows.cu",
     "hash_grid": "hash_grid.cu",
+    "aa_l1": "aa_l1.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -69,6 +70,9 @@ SIGNATURES = {
                              [_VOID] * 2 + [_INT] * 4 + [_VOID] * 3),
     "tss_hash_grid_grad_launch": ("hash_grid",
                                   [_VOID] * 3 + [_INT] * 4 + [_VOID] * 4),
+    "tss_aa_l1_launch": ("aa_l1", [_VOID] * 6 + [_INT] * 3 + [_VOID] * 5),
+    "tss_aa_l1_grad_launch": ("aa_l1",
+                              [_VOID] * 5 + [_INT] * 3 + [_VOID] * 2),
 }
 
 

@@ -5,12 +5,15 @@ The texture stage fits the colour field against the reference's full-image
 L1 with antialiasing while the geometry stays frozen (reference
 trainer.py:44-48, materials/explicit_material.py:86-108). Everything but
 the material parameters is static, so the cache built once per stage
-holds, for every dataset view: the raster and the clip positions (the
-visibility never changes), the mask, the target and the background, and
-the foreground pixels' contracted world positions with the inverse map
-from pixel to position. A step then evaluates the material at those
-points only, puts the colours back on the image, composites, antialiases
-and takes the L1: the visibility kernel is not launched inside a step.
+holds, for every dataset view: the target and the background, the
+foreground pixels' contracted world positions with the map from position
+to pixel and from pixel to position, and the colour antialias's pair
+weights (the visibility and the winners' rows never change, so neither
+the visibility kernel nor K8 is launched inside a step). A step then
+evaluates the material at those points only and runs the image-space
+tail: the colours put back on the image, composited, antialiased on the
+cached weights and compared with the target by the L1 (``ops/aa_l1.py``:
+K10 on the card, its plain chain on the CPU).
 
 The JAX package keeps static hash-table buckets here to avoid TPU
 scatters; the port does not: on the card the encoding is the kernel pair
@@ -35,10 +38,15 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops.rasterize import antialias_color, interpolate, rasterize
+from ..ops.aa_l1 import image_l1_loss, tail_tables
+from ..ops.rasterize import color_aa_weights, interpolate, rasterize
 from ..ops.transform import transform_pos
 from ..utils.profiling import span
 from .explicit_material import contract_to_unisphere
+
+
+# views whose antialias weights the cache makes in one pass
+AA_VIEWS = 8
 
 
 @torch.no_grad()
@@ -55,7 +63,7 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
     each). None, with the reason appended to ``reason_out``, where the JAX
     package refuses too: an encoding other than a plain HashGrid, or more
     foreground pixels than ``max_px`` (the knob and its default are JAX's;
-    the port's cache costs ~16 B per foreground pixel and ~40 B per pixel
+    the port's cache costs ~16 B per foreground pixel and ~20 B per pixel
     of every view, not JAX's ~1 KB per foreground pixel). ``shard`` (rank,
     W) caches the rank-th of W contiguous groups of the views (W must
     divide them); the foreground count that ``max_px`` bounds is summed
@@ -80,15 +88,23 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
     mvp = data_all["mvp"][views]
     res = int(resolution)
     v_corner = geometry.tet_v[statics.corner_vid]
-    pos_clip, rast, pix, pts = [], [], [], []
+    pix, pts, aa, aa_w, group = [], [], [], [], []
+    n_aa = 0
     for i in range(n):
         pc = transform_pos(mvp[i:i + 1], v_corner, is_ortho=is_ortho)
         ra, _ = rasterize(pc, (res, res), k=tile_k)
         fg = torch.nonzero(ra[0, ..., 3].reshape(-1) > 0)[:, 0]
         pts.append(interpolate(v_corner, ra)[0].reshape(-1, 3)[fg])
         pix.append(fg + i * res * res)
-        pos_clip.append(pc[0])
-        rast.append(ra[0])
+        group.append((ra, pc))
+        if len(group) == AA_VIEWS or i == n - 1:
+            a, w = tail_tables(color_aa_weights(
+                torch.cat([g[0] for g in group]),
+                torch.cat([g[1] for g in group]), statics.edge_nbrs), n_aa)
+            n_aa += int(w.shape[0])
+            aa.append(a)
+            aa_w.append(w)
+            group = []
     counts = [int(p.shape[0]) for p in pix]
     total_fg = sum(counts)
     if n_shards > 1:
@@ -101,14 +117,18 @@ def build_texture_exact_cache(geometry, material, data_all, resolution: int,
                 f"{total_fg} foreground pixels exceed texture_exact_max_px="
                 f"{max_px} (bucket arrays are ~128 x 8 B per pixel)")
         return None
-    rast = torch.stack(rast)
+    pix = torch.cat(pix)
+    fg = torch.full((n * res * res,), -1, dtype=torch.int32,
+                    device=pix.device)
+    fg[pix] = torch.arange(pix.shape[0], dtype=torch.int32,
+                           device=pix.device)
     return {
-        "pos_clip": torch.stack(pos_clip),              # (n,3F,4)
-        "rast": rast,                                   # (n,H,W,4)
-        "pix": torch.cat(pix),                          # (n_fg,) flat px
-        "mask": (rast[..., 3:4] > 0).to(torch.float32),  # (n,H,W,1)
-        "gt": data_all["img"][views, ..., :3],          # (n,H,W,3)
-        "bg": data_all["background"][views],            # (n,H,W,3)
+        "pix": pix,                                     # (n_fg,) flat px
+        "fg": fg.view(n, res, res),                     # (n,H,W) row or -1
+        "aa": torch.cat(aa),                            # (n,H,W) row or -1
+        "aa_w": torch.cat(aa_w),                        # (n_aa,4)
+        "gt": data_all["img"][views, ..., :3].contiguous(),  # (n,H,W,3)
+        "bg": data_all["background"][views].contiguous(),    # (n,H,W,3)
         "xc": contract_to_unisphere(torch.cat(pts), material.bbox),
         "n": n, "n_total": n_total, "P": max(1, max(counts)), "res": res,
     }
@@ -120,30 +140,21 @@ def build_texture_exact_loss(material, statics, cache: dict):
     the material at the cached foreground points, the colours put back on
     the image (zero elsewhere), composited over the background by the
     mask, colour-antialiased, and the L1 against the target summed and
-    divided by n·res²·3 (n: the views of all shards), × 20; reg is 0."""
-    n, res = cache["n"], cache["res"]
-    pix, xc, mask = cache["pix"], cache["xc"], cache["mask"]
-    gt, bg = cache["gt"], cache["bg"]
-    rast, pos_clip = cache["rast"], cache["pos_clip"]
-    edge_nbrs = statics.edge_nbrs
+    divided by n·res²·3 (n: the views of all shards), × 20
+    (``ops/aa_l1.py image_l1_loss``); reg is 0. ``statics`` is unused:
+    the cache holds the antialias's weights."""
+    xc = cache["xc"]
     enc_apply, net_apply = material.encoding.apply_fn, \
         material.network.apply_fn
     act = material.activation
-    denom = float(cache["n_total"] * res * res * 3)
 
     def loss_fn(mat_params, it):
         with span("tssplat.encoding"):
             feats = enc_apply(mat_params["encoding"], xc, it)
         with span("tssplat.mlp"):
             colors = act(net_apply(mat_params["network"], feats))  # (n_fg,3)
-        full = colors.new_zeros((n * res * res, colors.shape[-1]))
-        full = full.index_put((pix,), colors).view(n, res, res, -1)
-        gb = bg + (full - bg) * mask
-        shaded = antialias_color(gb, rast, pos_clip, edge_nbrs)
-        s = torch.sum(torch.abs(shaded - gt))
-        # divide by a tensor: CUDA division by a Python scalar multiplies
-        # by its reciprocal and rounds unlike the CPU and JAX
-        img_loss = s / torch.full_like(s, denom) * 20.0
-        return img_loss, torch.zeros((), device=s.device)
+        with span("tssplat.antialias_color"):
+            img_loss = image_l1_loss(colors, cache)
+        return img_loss, torch.zeros((), device=img_loss.device)
 
     return loss_fn

@@ -43,8 +43,9 @@ gets, and ``visibility_capped_boxed_plain``, the kernels' own search inside
 each face's pixel box, which the tests hold against the walk. What bounds
 each kernel and what its design does about it is noted at the top of its
 source. ``KERNELS`` and ``launch_counts()`` also count K9, the hash-grid
-encoding's pair (``ops/hash_grid.py``), so that one count shows every
-hand-written kernel a run launched.
+encoding's pair (``ops/hash_grid.py``), and K10, the exact texture loss's
+tail (``ops/aa_l1.py``), so that one count shows every hand-written kernel
+a run launched.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from ..utils.debug import check_kernel_outputs
 from ..utils.profiling import span
 from .binning import (CAP_TILE_H, CAP_TILE_W, CappedBins, FaceBins, TILE_H,
                       TILE_W)
+from .aa_l1 import aa_l1, aa_l1_backward
 from .hash_grid import hash_grid, hash_grid_backward
 from .screen import AREA_EPS, W_EPS, edge, ndc_center, pixel_centers
 
@@ -1002,11 +1004,12 @@ def winner_rows_plain(rast: torch.Tensor, tbl6: torch.Tensor,
     return ids, z, rows[:, :6].contiguous(), rows[:, 6:].contiguous()
 
 
-# every hand-written kernel of the port, K9 (``ops/hash_grid.py``) too
+# every hand-written kernel of the port, K9 (``ops/hash_grid.py``) and K10
+# (``ops/aa_l1.py``) too
 KERNELS = (visibility, visibility_capped_ids, visibility_capped,
            wsr_table_grad, aa_forward, aa_backward, shade, shade_backward,
            interp, interp_backward, winner_rows, hash_grid,
-           hash_grid_backward)
+           hash_grid_backward, aa_l1, aa_l1_backward)
 
 
 def reset_launch_counts() -> None:

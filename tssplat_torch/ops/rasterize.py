@@ -22,6 +22,8 @@
   antialias_color(color, rast, pos_clip, edge_nbrs) -> (B,H,W,C) colour
       antialias (the texture stage), differentiable in the colour and, when
       pos_clip carries a gradient, in the positions (through K3)
+  color_aa_weights(rast, pos_clip, edge_nbrs) -> (B,H,W,4) its weights
+      toward each pixel's four neighbours, without gradient
 
 Every renderer below takes an optional ``viewport=(row0, full_h)``: its H
 rows are then a horizontal slab, absolute rows row0.. of a full_h-tall image
@@ -485,6 +487,26 @@ def _aa_pair_weights(id_a, id_b, z_a, z_b, g_a, g_b, aux_a, aux_b,
     return w_a, w_b
 
 
+def _color_pair_weights(ids, z, g, gaux):
+    """(w_a, w_b) of the horizontal pairs a = (r, c), b = (r, c+1), each
+    (B,H,W-1), and of the vertical pairs a = (r, c), b = (r+1, c), each
+    (B,H-1,W), from the winner rows of ``antialias_rows``."""
+    B, H, W = ids.shape
+    dt, dev = z.dtype, z.device
+    px = ndc_center(torch.arange(W, dtype=dt, device=dev), W)[None, None, :]
+    py = ndc_center(torch.arange(H, dtype=dt, device=dev), H)[None, :, None]
+    px, py = px.expand(B, H, W), py.expand(B, H, W)
+    horizontal = _aa_pair_weights(
+        ids[:, :, :-1], ids[:, :, 1:], z[:, :, :-1], z[:, :, 1:],
+        g[..., :-1], g[..., 1:], gaux[..., :-1], gaux[..., 1:],
+        px[:, :, :-1], py[:, :, :-1], px[:, :, 1:], py[:, :, 1:])
+    vertical = _aa_pair_weights(
+        ids[:, :-1], ids[:, 1:], z[:, :-1], z[:, 1:],
+        g[:, :, :-1], g[:, :, 1:], gaux[:, :, :-1], gaux[:, :, 1:],
+        px[:, :-1], py[:, :-1], px[:, 1:], py[:, 1:])
+    return horizontal, vertical
+
+
 def antialias_color(color: torch.Tensor, rast: torch.Tensor,
                     pos_clip: torch.Tensor, edge_nbrs: torch.Tensor
                     ) -> torch.Tensor:
@@ -497,37 +519,45 @@ def antialias_color(color: torch.Tensor, rast: torch.Tensor,
     through ``winner_screen_rows``, so the position gradient is folded into
     the face table by K3. The pairs run as plain PyTorch, as JAX runs them
     outside any Pallas kernel, and the deltas are added in JAX's order:
-    horizontal a, b, then vertical a, b."""
+    horizontal a, b, then vertical a, b. This is the dense colour path's
+    (``render/pipeline.py``); the exact texture loss, whose geometry is
+    frozen, makes the weights once (``color_aa_weights``) and runs the
+    blend in K10 (``ops/aa_l1.py``)."""
     with span("tssplat.antialias_color"):
         return _antialias_color(color, rast, pos_clip, edge_nbrs)
 
 
 def _antialias_color(color, rast, pos_clip, edge_nbrs):
-    B, H, W, C = color.shape
     tbl6 = screen_xy_table(pos_clip, edge_nbrs.shape[0])
     ids, z, rows6, gaux = antialias_rows(rast, tbl6, edge_nbrs)
     g = winner_screen_rows(tbl6, ids, rows6) if pos_clip.requires_grad \
         else rows6
-    dt, dev = color.dtype, color.device
-    px = ndc_center(torch.arange(W, dtype=dt, device=dev), W)[None, None, :]
-    py = ndc_center(torch.arange(H, dtype=dt, device=dev), H)[None, :, None]
-    px, py = px.expand(B, H, W), py.expand(B, H, W)
-
+    (wha, whb), (wva, wvb) = _color_pair_weights(ids, z, g, gaux)
     out = color
     # horizontal pairs: a = (r, c), b = (r, c+1)
-    w_a, w_b = _aa_pair_weights(
-        ids[:, :, :-1], ids[:, :, 1:], z[:, :, :-1], z[:, :, 1:],
-        g[..., :-1], g[..., 1:], gaux[..., :-1], gaux[..., 1:],
-        px[:, :, :-1], py[:, :, :-1], px[:, :, 1:], py[:, :, 1:])
     ca, cb = color[:, :, :-1], color[:, :, 1:]
-    out = out + F_pad((cb - ca) * w_a[..., None], (0, 0, 0, 1))
-    out = out + F_pad((ca - cb) * w_b[..., None], (0, 0, 1, 0))
+    out = out + F_pad((cb - ca) * wha[..., None], (0, 0, 0, 1))
+    out = out + F_pad((ca - cb) * whb[..., None], (0, 0, 1, 0))
     # vertical pairs: a = (r, c), b = (r+1, c)
-    w_a, w_b = _aa_pair_weights(
-        ids[:, :-1], ids[:, 1:], z[:, :-1], z[:, 1:],
-        g[:, :, :-1], g[:, :, 1:], gaux[:, :, :-1], gaux[:, :, 1:],
-        px[:, :-1], py[:, :-1], px[:, 1:], py[:, 1:])
     ca, cb = color[:, :-1], color[:, 1:]
-    out = out + F_pad((cb - ca) * w_a[..., None], (0, 0, 0, 0, 0, 1))
-    out = out + F_pad((ca - cb) * w_b[..., None], (0, 0, 0, 0, 1, 0))
+    out = out + F_pad((cb - ca) * wva[..., None], (0, 0, 0, 0, 0, 1))
+    out = out + F_pad((ca - cb) * wvb[..., None], (0, 0, 0, 0, 1, 0))
     return out
+
+
+@torch.no_grad()
+def color_aa_weights(rast: torch.Tensor, pos_clip: torch.Tensor,
+                     edge_nbrs: torch.Tensor) -> torch.Tensor:
+    """The colour antialias's weights at each pixel, without gradient:
+    (B,H,W,4), the weight that blends the pixel toward its right, left,
+    lower and upper neighbour (``antialias_color``'s horizontal a, b and
+    vertical a, b weights, zero where its pads put no pair). The same
+    ``_aa_pair_weights`` on the same winner rows, so a blend with them
+    gives ``antialias_color``'s values to the bit where pos_clip is
+    frozen."""
+    tbl6 = screen_xy_table(pos_clip, edge_nbrs.shape[0])
+    ids, z, rows6, gaux = antialias_rows(rast, tbl6, edge_nbrs)
+    (wha, whb), (wva, wvb) = _color_pair_weights(ids, z, rows6, gaux)
+    return torch.stack([F_pad(wha, (0, 1)), F_pad(whb, (1, 0)),
+                        F_pad(wva, (0, 0, 0, 1)), F_pad(wvb, (0, 0, 1, 0))],
+                       dim=-1)
